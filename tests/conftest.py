@@ -82,6 +82,8 @@ def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running end-to-end drills")
     config.addinivalue_line(
         "markers", "quick: ~2min smoke subset (pre-commit tier; -m quick)")
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card; skips without one")
 
 
 def pytest_collection_modifyitems(config, items):
