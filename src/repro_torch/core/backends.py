@@ -20,6 +20,9 @@ recurrence kinds a backend serves (plug-ins default to affine-only).
 Every backend serves the score output through ``fn``; ``trace_variant``
 (same signature) also returns the packed 2-bit provenance words
 (``m_bt``/``i_bt``/``d_bt``) that ``core.cigar`` decodes into CIGARs.
+``meet_variant`` (optional; the signature and ``BidirMeetResult`` of
+``core.wavefront.wfa_bidir_meet``) serves the BiWFA driver's meet waves;
+backends without one use that shared solver.
 
 ``donate_args`` is kept for the registry's shape and has no effect: it
 asked XLA to alias input buffers.  ``dispatch(fn, *arrays)`` intercepts
@@ -29,7 +32,8 @@ Built-ins (both serve every penalty model and heuristic):
 
 * ``"ring"``   — rolling-window WFA in plain PyTorch; packed backtrace
 * ``"kernel"`` — the CUDA WFA kernel (its plain version on CPU tensors);
-                 packed backtrace OR-accumulated in registers
+                 packed backtrace OR-accumulated in registers; the CUDA
+                 meet kernel as its meet variant
 
 ``ref`` (full history) and ``shardmap`` (one shard per card) come later.
 """
@@ -200,10 +204,20 @@ def _kernel_trace(pattern, text, plen, tlen, *, pen, s_max, k_max,
                         d_bt)
 
 
+def _kernel_meet(pattern, text, plen, tlen, starget, *, pen, s_max, k_max,
+                 heur=None, begin_state="M", end_state="M",
+                 block_pairs=None):
+    from repro_torch.kernels.wfa import ops as kops
+    return kops.wfa_bidir_meet_kernel(
+        pattern, text, plen, tlen, starget, pen=pen, s_max=s_max,
+        k_max=k_max, heur=heur, begin_state=begin_state,
+        end_state=end_state, block_pairs=block_pairs, device=pattern.device)
+
+
 @register_backend("kernel", donate_args=(2, 3), trace_variant=_kernel_trace,
-                  models=ALL_MODELS,
+                  meet_variant=_kernel_meet, models=ALL_MODELS,
                   doc="hand-written CUDA WFA kernel (plain PyTorch on CPU "
-                      "tensors); packed backtrace")
+                      "tensors); packed backtrace; CUDA BiWFA meet")
 def _kernel_backend(pattern, text, plen, tlen, *, pen, s_max, k_max,
                     heur=None, block_pairs=None, gather=None, ext_stride=1,
                     band_cap=None):

@@ -19,6 +19,11 @@ batch of read pairs to scores lives here:
   paper's Fig. 1 *Total vs Kernel* split).  In the blocking ``align()``
   path on a card the three phases are timed by CUDA events.
 
+CIGARs come from the backend's packed backtrace, or, with
+``trace_variant="bidir"``, from the BiWFA recursion (``repro_torch.biwfa``):
+meet waves (the engine-level ``"bidir_meet"`` output) split each pair until
+the pieces fit ``trace_budget``, in O(s) trace memory.
+
 Execution lives in ``core.session``: ``align()`` is one blocking pass
 through an :class:`~repro_torch.core.session.AlignmentSession`, and
 ``engine.stream()`` opens the same session in pipelined mode.
@@ -47,6 +52,7 @@ import torch
 
 from repro_torch.core import cigar as cigar_mod
 from repro_torch.core import scoring
+from repro_torch.core import wavefront as wf
 from repro_torch.core.backends import BackendSpec, _accepts_kw, get_backend
 from repro_torch.core.penalties import DEFAULT
 from repro_torch.core.wavefront import resolve_device
@@ -203,18 +209,27 @@ class EngineStats:
     t_scatter: float = 0.0
     t_kernel: float = 0.0
     t_gather: float = 0.0
+    # BiWFA (trace_variant="bidir") telemetry
+    n_meet_unmet: int = 0      # meet rows whose fronts never joined
+    n_bidir_fallback: int = 0  # segments re-run via packed traceback
     peak_trace_bytes: int = 0  # largest trace buffer gathered for one wave
 
     def merge(self, other: "EngineStats", *,
               count_pairs: bool = True) -> "EngineStats":
-        """Fold ``other``'s telemetry into this one, in place -> self."""
+        """Fold ``other``'s telemetry into this one, in place -> self.
+
+        Additive fields sum, ``buckets`` extend, high-water marks max.
+        ``count_pairs=False`` skips ``n_pairs``: child tickets (BiWFA
+        sub-problems) re-process pairs the parent already counted.
+        """
         if count_pairs:
             self.n_pairs += other.n_pairs
         self.n_workers = max(self.n_workers, other.n_workers)
         self.buckets.extend(other.buckets)
         for f in ("n_overflow", "n_recovered", "cache_hits", "cache_misses",
                   "n_traces", "rows_real", "rows_padded", "bytes_in",
-                  "bytes_out", "t_scatter", "t_kernel", "t_gather"):
+                  "bytes_out", "t_scatter", "t_kernel", "t_gather",
+                  "n_meet_unmet", "n_bidir_fallback"):
             setattr(self, f, getattr(self, f) + getattr(other, f))
         self.peak_trace_bytes = max(self.peak_trace_bytes,
                                     other.peak_trace_bytes)
@@ -268,6 +283,15 @@ class EngineResult:
             for s, c in zip(self.scores, self.cigars)])
 
 
+def _shared_meet(pattern, text, plen, tlen, starget, *, pen, s_max, k_max,
+                 heur=None, begin_state="M", end_state="M"):
+    """The shared meet solver, on the device of the wave's tensors."""
+    return wf.wfa_bidir_meet(pattern, text, plen, tlen, starget, pen=pen,
+                             s_max=s_max, k_max=k_max, heur=heur,
+                             begin_state=begin_state, end_state=end_state,
+                             device=pattern.device)
+
+
 class _Executable:
     """One backend entry point specialised for a fixed problem shape.
 
@@ -278,14 +302,21 @@ class _Executable:
 
     def __init__(self, spec: BackendSpec, pen, s_max: int, k_max: int,
                  output: str = "score", heur=None,
+                 states: Tuple[str, str] = ("M", "M"),
                  opts: Tuple[Tuple[str, object], ...] = ()):
         self.s_max = s_max
         self.k_max = k_max
         self.n_traces = 0
         pen = scoring.as_model(pen)
         heur = scoring.as_heuristic(heur)
-        fn = spec.variant(output, pen.kind)
-        self._dispatch = spec.dispatch
+        if output == "bidir_meet":
+            # the BiWFA breakpoint search: the backend's meet variant (the
+            # CUDA meet kernel on "kernel"), else the shared solver
+            fn = spec.meet_variant or _shared_meet
+            self._dispatch = None
+        else:
+            fn = spec.variant(output, pen.kind)
+            self._dispatch = spec.dispatch
         extra = {}
         opts = dict(opts)
         if opts.get("band_cap") == "auto":
@@ -295,13 +326,16 @@ class _Executable:
             if val is not None and _accepts_kw(fn, kw):
                 extra[kw] = val
         if not heur.exact:
-            if not spec.accepts_heuristic(output):
+            if output != "bidir_meet" and not spec.accepts_heuristic(output):
                 raise ValueError(
                     f"backend {spec.name!r} does not accept wavefront "
                     f"heuristics (no 'heur' keyword on its "
                     f"{output}-variant); use heuristic=None or a "
                     f"heuristic-aware backend")
             extra["heur"] = heur
+        if tuple(states) != ("M", "M"):
+            # boundary-constrained sub-alignment (a BiWFA recursion child)
+            extra["begin_state"], extra["end_state"] = states
 
         def _run(*arrays):
             return fn(*arrays, pen=pen, s_max=s_max, k_max=k_max, **extra)
@@ -322,10 +356,13 @@ class AlignmentEngine:
     Parameters as in ``repro.core.engine.AlignmentEngine`` (``pen``,
     ``backend``, ``edit_frac``, ``s_max``/``k_max``, ``output``,
     ``heuristic``, ``chunk_pairs``, ``bucket_by_length``,
-    ``min_bucket_len``, ``adaptive``, ``max_wave_cells``,
-    ``backend_opts``), plus ``device``: where the waves run (``None`` =
-    ``"cuda"``, which must be present).  One device is one worker.
-    ``trace_variant="bidir"`` (BiWFA) is not ported yet.
+    ``min_bucket_len``, ``adaptive``, ``trace_variant``,
+    ``max_wave_cells``, ``trace_budget``, ``backend_opts``), plus
+    ``device``: where the waves run (``None`` = ``"cuda"``, which must be
+    present).  One device is one worker.  ``trace_variant="bidir"``
+    produces CIGARs through the BiWFA recursion; ``trace_budget`` is its
+    base case: a sub-problem whose ``s * (plen + tlen)`` fits it takes the
+    packed backtrace (``None``: ``repro_torch.biwfa.DEFAULT_TRACE_BUDGET``).
     """
 
     def __init__(self, pen=DEFAULT, *, backend: str = "ring",
@@ -336,6 +373,7 @@ class AlignmentEngine:
                  min_bucket_len: int = 16, adaptive: bool = True,
                  trace_variant: str = "packed",
                  max_wave_cells: int = 1 << 24,
+                 trace_budget: Optional[int] = None,
                  backend_opts: Optional[Dict[str, object]] = None,
                  device=None):
         spec = get_backend(backend)
@@ -351,9 +389,6 @@ class AlignmentEngine:
         if trace_variant not in ("packed", "bidir"):
             raise ValueError(f"unknown trace variant {trace_variant!r}; "
                              "use 'packed' or 'bidir'")
-        if trace_variant == "bidir":
-            raise NotImplementedError(
-                "trace_variant='bidir' (BiWFA) is not ported yet")
         self.default_output = output
         self.trace_variant = trace_variant
         if output == "cigar" and not spec.supports_cigar:
@@ -375,6 +410,7 @@ class AlignmentEngine:
         # long-read bucket ladder: cap rows-per-wave so wide buckets
         # dispatch narrow waves instead of running out of memory
         self.max_wave_cells = int(max_wave_cells)
+        self.trace_budget = trace_budget
         self.n_workers = 1
         self._cache: Dict[tuple, _Executable] = {}
 
@@ -391,16 +427,15 @@ class AlignmentEngine:
 
     def resolve_trace_variant(self, trace_variant: Optional[str],
                               output: str = "score") -> str:
-        """Validate a per-call trace variant (None -> the engine default);
-        only ``"packed"`` is ported."""
+        """Validate a per-call trace variant (None -> the engine default).
+
+        ``"bidir"`` only changes how CIGARs are produced, so score-only
+        submissions normalize to ``"packed"``."""
         tv = self.trace_variant if trace_variant is None else trace_variant
         if tv not in ("packed", "bidir"):
             raise ValueError(f"unknown trace variant {trace_variant!r}; "
                              "use 'packed' or 'bidir'")
-        if tv == "bidir" and output == "cigar":
-            raise NotImplementedError(
-                "trace_variant='bidir' (BiWFA) is not ported yet")
-        return "packed"
+        return tv if output == "cigar" else "packed"
 
     def resolve_penalties(self, pen) -> "scoring.PenaltyModel":
         """Validate a per-call penalty model (None -> the engine default)."""
@@ -436,12 +471,15 @@ class AlignmentEngine:
 
     def _bounds_for_bucket(self, lmax: int, plen_b: np.ndarray,
                            tlen_b: np.ndarray, exact: bool,
-                           pen=None) -> Tuple[int, int]:
+                           pen=None, s_cap: Optional[int] = None
+                           ) -> Tuple[int, int]:
         """Static (s_max, k_max) for one bucket.
 
         Pass-1 bounds depend only on (pen, lmax, edit_frac), never on the
         data; the exact path rounds ``s_max`` up to a multiple of 32 (the
         score loop exits early regardless), so buckets share cache keys.
+        ``s_cap`` is a per-submit score ceiling: BiWFA sub-problems run at
+        their known cost, far below the bucket's worst case.
         """
         pen = self.pen if pen is None else pen
         max_diff = int(np.abs(tlen_b - plen_b).max(initial=0))
@@ -453,6 +491,8 @@ class AlignmentEngine:
             max_diff = 0
         else:
             s = _round_up(_exact_worst_score(pen, plen_b, tlen_b), 32)
+        if s_cap is not None:
+            s = max(min(s, int(s_cap)), 1)
         k = self._k_max if self._k_max is not None else \
             min(pen.band_bound(s), lmax)
         return int(s), max(int(k), max_diff, 1)
@@ -489,13 +529,23 @@ class AlignmentEngine:
 
     def _executable_for(self, pshape: tuple, tshape: tuple, s_max: int,
                         k_max: int, output: str = "score",
-                        pen=None, heur=None) -> Tuple["_Executable", bool]:
+                        pen=None, heur=None,
+                        states: Tuple[str, str] = ("M", "M")
+                        ) -> Tuple["_Executable", bool]:
         """Cached specialisation for one problem shape -> (exe, hit)."""
         spec = get_backend(self.backend)
+        states = tuple(states)
+        if output == "cigar" and states != ("M", "M") \
+                and not spec.accepts_states():
+            # boundary-constrained children (BiWFA recursion) need a
+            # state-aware trace path: the ring solver serves backends whose
+            # trace variant cannot seed mid-gap fronts (the kernel's)
+            spec = get_backend("ring")
         pen = self.pen if pen is None else pen
         heur = self.heuristic if heur is None else heur
         opts = tuple(sorted(self.backend_opts.items()))
-        key = (spec, pen, heur, pshape, tshape, s_max, k_max, output, opts)
+        key = (spec, pen, heur, pshape, tshape, s_max, k_max, output, states,
+               opts)
         exe = self._cache.get(key)
         if exe is not None:
             obs_metrics.counter("engine_cache_hits_total",
@@ -507,7 +557,8 @@ class AlignmentEngine:
             obs_trace.instant("engine.retrace", args={
                 "backend": spec.name, "shape": list(pshape),
                 "s_max": s_max, "k_max": k_max, "output": output})
-        exe = _Executable(spec, pen, s_max, k_max, output, heur, opts)
+        exe = _Executable(spec, pen, s_max, k_max, output, heur, states,
+                          opts)
         self._cache[key] = exe
         return exe, False
 

@@ -19,6 +19,9 @@ The counterpart of ``repro.core.session`` on PyTorch:
   full recovery wave accumulates or at drain.
 * each submit carries its own **output mode**; CIGAR tracebacks run on
   the host at retirement (``core.cigar`` on the gathered numpy words).
+  ``trace_variant="bidir"`` hands a CIGAR ticket to the BiWFA driver
+  (``repro_torch.biwfa``), which resubmits its sub-problems through the
+  same session as internal tickets.
 
 The sync ``engine.align()`` is one blocking pass through this class
 (``max_inflight_waves=1`` + per-phase timing: on a card, CUDA events
@@ -54,9 +57,6 @@ from repro_torch.obs import trace as obs_trace
 
 __all__ = ["AlignmentSession", "SessionStats", "Ticket", "run_streamed"]
 
-_TRACE_FIELDS = ("m_bt", "i_bt", "d_bt")
-
-
 @dataclasses.dataclass
 class SessionStats(EngineStats):
     """Aggregate telemetry across every submit of one session."""
@@ -75,7 +75,9 @@ class Ticket:
     """
 
     def __init__(self, session: "AlignmentSession", index: int, n_pairs: int,
-                 output: str = "score", pen=None, heur=None, meta=None):
+                 output: str = "score", pen=None, heur=None, meta=None,
+                 trace_variant: str = "packed", states=("M", "M"),
+                 s_cap=None, internal: bool = False, on_done=None):
         eng = session.engine
         self.index = index
         self.n_pairs = n_pairs
@@ -83,6 +85,18 @@ class Ticket:
         self.meta = meta                 # opaque caller payload
         self.pen = eng.pen if pen is None else pen
         self.heur = eng.heuristic if heur is None else heur
+        self.trace_variant = trace_variant   # "packed" | "bidir"
+        # boundary states of BiWFA recursion children: "I"/"D" pins the
+        # alignment's start/end inside an open gap run
+        self.states = tuple(states)
+        # per-submit score ceiling (BiWFA children run at their known
+        # cost); capped tickets are single-pass: an unresolved row means
+        # "over the cap", so there is no recovery re-run
+        self._s_cap = s_cap
+        # internal tickets (BiWFA sub-problems) never surface through
+        # poll()/as_completed()/results(); on_done fires at finalization
+        self.internal = internal
+        self._on_done = on_done
         # trace-flow IDs riding this ticket (see repro_torch.obs.trace);
         # _own_flows marks IDs this ticket allocated and ends at finalize
         self.flows: tuple = ()
@@ -91,6 +105,11 @@ class Ticket:
         self._session = session
         self._scores = np.full((n_pairs,), -1, np.int32)
         self._cigars: Optional[dict] = {} if output == "cigar" else None
+        # breakpoints of "bidir_meet" rows: (state, a, b, k, h, safe) per
+        # pair, -1 until the wave retires
+        self._meet = (np.full((n_pairs, 6), -1, np.int32)
+                      if output == "bidir_meet" else None)
+        self._starget = None             # [n] known costs for meet waves
         self._p = self._t = self._plen = self._tlen = None
         self._outstanding = n_pairs      # rows without a final score yet
         self._recovery_rows: List[np.ndarray] = []   # overflow awaiting re-run
@@ -119,8 +138,11 @@ class _Transfer:
 
     def __init__(self, res, device: torch.device):
         self.res = res
-        names = ("score",) + tuple(f for f in _TRACE_FIELDS
-                                   if getattr(res, f) is not None)
+        # the score and every other tensor field: trace words, meet
+        # breakpoints, a kernel's on-device step count
+        names = ("score",) + tuple(
+            f for f in res._fields[1:]
+            if isinstance(getattr(res, f), torch.Tensor))
         self.kernel_done = self.copied = None
         if device.type == "cuda":
             self.kernel_done = torch.cuda.Event(enable_timing=True)
@@ -145,7 +167,7 @@ class _Transfer:
             self.kernel_done.synchronize()
 
     def fetch(self):
-        """-> the wave's ``WFAResult`` with numpy arrays (blocks)."""
+        """-> the wave's result with numpy arrays (blocks)."""
         if self.copied is not None:
             self.copied.synchronize()
         return self.res._replace(**{f: t.numpy()
@@ -257,25 +279,44 @@ class AlignmentSession:
     def submit_packed(self, p: np.ndarray, plen: np.ndarray, t: np.ndarray,
                       tlen: np.ndarray, *, output: Optional[str] = None,
                       penalties=None, heuristic=None, meta=None,
-                      trace_variant: Optional[str] = None) -> Ticket:
-        """Enqueue pre-packed [B, L] codes + [B] lens; returns immediately."""
+                      trace_variant: Optional[str] = None,
+                      _s_cap=None, _states=("M", "M"), _starget=None,
+                      _internal: bool = False, _on_done=None,
+                      _flows=None) -> Ticket:
+        """Enqueue pre-packed [B, L] codes + [B] lens; returns immediately.
+
+        The underscore keywords are the BiWFA driver's internal seam
+        (``repro_torch.biwfa.recurse``): sub-problems resubmit through the
+        same session so they batch with live traffic.  ``_starget`` (known
+        per-pair costs) flips the ticket to the engine-level
+        ``"bidir_meet"`` output, a breakpoint wave.  ``_flows`` hands the
+        ticket trace-flow IDs owned by its parent to step through.
+        """
         with self._lock:
             self._check_open()
             n = int(p.shape[0])
             # resolve everything before the Ticket exists: a rejected submit
             # must leave the session clean
             pen = self.engine.resolve_penalties(penalties)
-            out = self.engine.resolve_output(output, pen)
+            if _starget is not None:
+                out = "bidir_meet"
+            else:
+                out = self.engine.resolve_output(output, pen)
             heur = self.engine.resolve_heuristic(heuristic, out)
-            self.engine.resolve_trace_variant(trace_variant, out)
+            tv = self.engine.resolve_trace_variant(trace_variant, out)
             ticket = Ticket(self, len(self._tickets), n, out, pen=pen,
-                            heur=heur, meta=meta)
+                            heur=heur, meta=meta, trace_variant=tv,
+                            states=_states, s_cap=_s_cap,
+                            internal=_internal, on_done=_on_done)
             self._tickets.append(ticket)
-            if obs_trace.enabled():
+            if _flows is not None:
+                ticket.flows = tuple(_flows)
+            elif obs_trace.enabled():
                 ticket.flows = (obs_trace.new_flow(),)
                 ticket._own_flows = True
-            self.stats.n_submits += 1
-            self.stats.n_pairs += n
+            if not _internal:
+                self.stats.n_submits += 1
+                self.stats.n_pairs += n
             with obs_trace.span(
                     "session.submit", cat="session",
                     args={"ticket": ticket.index, "pairs": n, "output": out}
@@ -290,8 +331,20 @@ class AlignmentSession:
                 ticket._t = np.asarray(t)
                 ticket._plen = np.asarray(plen, np.int32)
                 ticket._tlen = np.asarray(tlen, np.int32)
+                if _starget is not None:
+                    ticket._starget = np.asarray(_starget, np.int32)
+                if tv == "bidir" and out == "cigar" and not _internal:
+                    # meet-in-the-middle traceback: a host-side driver owns
+                    # this ticket; it resolves scores first, then splits each
+                    # pair through meet waves and internal sub-tickets
+                    from repro_torch.biwfa.recurse import BidirDriver
+                    BidirDriver(self, ticket).start()
+                    return ticket
                 eng = self.engine
-                optimistic = eng.edit_frac is not None and eng._s_max is None
+                # capped tickets (BiWFA children) are single-pass: the cap
+                # is already an exact bound
+                optimistic = (eng.edit_frac is not None
+                              and eng._s_max is None and _s_cap is None)
                 self._enqueue_pass(ticket, np.arange(n),
                                    exact=not optimistic, recovery=False)
                 return ticket
@@ -303,7 +356,7 @@ class AlignmentSession:
         for width, bidx in eng._plan_buckets(ticket._plen, ticket._tlen, idx):
             s_max, k_max = eng._bounds_for_bucket(
                 width, ticket._plen[bidx], ticket._tlen[bidx], exact,
-                pen=ticket.pen)
+                pen=ticket.pen, s_cap=ticket._s_cap)
             ticket._s_hi = max(ticket._s_hi, s_max)
             ticket._k_hi = max(ticket._k_hi, k_max)
             info = BucketInfo(width, s_max, k_max, len(bidx),
@@ -354,9 +407,14 @@ class AlignmentSession:
             tc = _pad_rows(_fit_width(ticket._t[rows], width), nb)
             plc = _pad_rows(ticket._plen[rows], nb)
             tlc = _pad_rows(ticket._tlen[rows], nb)
+            arrays = [pc, tc, plc, tlc]
+            if ticket.output == "bidir_meet":
+                # meet waves carry each pair's known cost as a 5th input
+                arrays.append(_pad_rows(ticket._starget[rows], nb))
             exe, hit = eng._executable_for(pc.shape, tc.shape, s_max, k_max,
                                            ticket.output, pen=ticket.pen,
-                                           heur=ticket.heur)
+                                           heur=ticket.heur,
+                                           states=ticket.states)
             for st in (ticket.stats, self.stats):
                 if hit:
                     st.cache_hits += 1
@@ -371,7 +429,7 @@ class AlignmentSession:
                 with obs_profile.annotation("wfa.kernel.dispatch"):
                     t_host = time.perf_counter() - t0
                     e0 = self._mark()
-                    dev = eng._device_put(pc, tc, plc, tlc)
+                    dev = eng._device_put(*arrays)
                     e1 = self._mark()
                     res = exe.call(*dev)
                     xfer = _Transfer(res, eng.device)
@@ -461,6 +519,15 @@ class AlignmentSession:
                 st.bytes_out += full.nbytes
             ticket._scores[wave.rows] = out
             ticket._steps += int(res.n_steps)
+            if ticket._meet is not None:
+                nr = len(wave.rows)
+                ticket._meet[wave.rows] = np.stack(
+                    [res.meet_state[:nr], res.meet_a[:nr], res.meet_b[:nr],
+                     res.meet_k[:nr], res.meet_h[:nr], res.meet_safe[:nr]],
+                    axis=1).astype(np.int32)
+                n_unmet = int((out < 0).sum())
+                for st in (ticket.stats, self.stats):
+                    st.n_meet_unmet += n_unmet
         if ticket._cigars is not None:
             with obs_trace.span("wave.traceback", cat="wave",
                                 args=_args) as tsp:
@@ -469,7 +536,9 @@ class AlignmentSession:
                 t3 = time.perf_counter()
                 ops = cigar_mod.traceback_result(
                     res, ticket.pen, pattern=wave.pc, text=wave.tc,
-                    plen=wave.plc, tlen=wave.tlc, k_max=wave.k_max)
+                    plen=wave.plc, tlen=wave.tlc, k_max=wave.k_max,
+                    begin_state=ticket.states[0],
+                    end_state=ticket.states[1])
                 dt = time.perf_counter() - t3
                 nbytes = cigar_mod.trace_nbytes(res)
                 for st in (ticket.stats, self.stats):
@@ -480,7 +549,8 @@ class AlignmentSession:
                     ticket._cigars[int(orig)] = ops[j]
 
         eng = self.engine
-        optimistic = eng.edit_frac is not None and eng._s_max is None
+        optimistic = (eng.edit_frac is not None and eng._s_max is None
+                      and ticket._s_cap is None)
         settled = len(wave.rows)     # rows this wave resolved for good
         if wave.recovery:
             n_rec = int((out >= 0).sum())
@@ -548,7 +618,13 @@ class AlignmentSession:
                                 if obs_trace.enabled() else None) as sp:
                 for fid in ticket.flows:
                     sp.flow_end(fid)
-        self._completed.append(ticket)
+        if ticket.internal:
+            # BiWFA sub-problem: hand the result to the driver (which may
+            # re-enter submit_packed: the lock is re-entrant)
+            if ticket._on_done is not None:
+                ticket._on_done(ticket)
+        else:
+            self._completed.append(ticket)
 
     def _flush_recovery(self, ticket: Optional[Ticket] = None) -> None:
         """Re-run queued overflow pairs with exact worst-case bounds."""
@@ -677,10 +753,12 @@ class AlignmentSession:
             self._step_timed(deadline)
 
     def results(self) -> Iterator[EngineResult]:
-        """Yield each submit's :class:`EngineResult` in submission order."""
+        """Yield each submit's :class:`EngineResult` in submission order
+        (internal BiWFA sub-tickets excluded)."""
         i = 0
         while i < len(self._tickets):
-            yield self._tickets[i].result()
+            if not self._tickets[i].internal:
+                yield self._tickets[i].result()
             i += 1
 
     def drain(self) -> SessionStats:

@@ -45,8 +45,12 @@ Provenance code values (2 bits each, 0 = invalid/never-written):
     affine I/D cell: 1 = gap open, 2 = gap extend
     linear M cell: 1 = mismatch, 2 = insertion, 3 = deletion
 
-The compacting band (``band_cap``), the full-history solver and the BiWFA
-meet solver are not ported yet.
+:func:`wfa_bidir_meet` is the BiWFA meet-in-the-middle breakpoint solver
+(forward and reverse fronts over rolling windows); it serves backends
+without a meet variant and is the oracle of the CUDA meet kernel.
+
+The compacting band (``band_cap``) and the full-history solver are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -129,28 +133,44 @@ def _shift_from_kp1(w):
     return torch.nn.functional.pad(w[..., 1:], (0, 1), value=NEG)
 
 
-def _gather_cols(seq, idx):
-    """seq[b, clip(idx[b, k])] as [B, K] (out-of-range lanes read junk that
-    the caller's validity mask discards)."""
-    return torch.gather(seq, 1, idx.clamp(0, seq.shape[1] - 1).long())
+_EXT_CHUNK = 8   # characters each valid lane compares on its first trip
 
 
 def _extend(M, pattern, text, plen, tlen, ks):
-    """Greedy diagonal extension, all (pair, diagonal) lanes in lock-step:
-    one matched character per trip until no lane advances."""
+    """Greedy diagonal extension ``M += LCP(t[h:], p[v:])`` on every valid
+    lane.
+
+    Each trip compares a chunk of characters per lane and advances the lane
+    by its matched prefix.  Only lanes that matched the whole chunk take
+    another trip, gathered into a compact list, with the chunk doubled, so
+    a long match run costs a few trips and a short one a single trip.  The
+    result equals one character per trip (the reference's loop)."""
     if pattern.shape[1] == 0 or text.shape[1] == 0:
         return M
-    ks2 = ks if ks.dim() == 2 else ks[None, :]
-    pl = plen[:, None]
-    tl = tlen[:, None]
+    B, K = M.shape
+    ks2 = (ks if ks.dim() == 2 else ks[None, :]).expand(B, K)
+    b, j = torch.nonzero(M > _VALID_THRESH, as_tuple=True)
+    if b.numel() == 0:
+        return M
+    out = M.clone()
+    h, k = M[b, j], ks2[b, j]
+    pl, tl = plen[b, None], tlen[b, None]
+    Lp, Lt = pattern.shape[1], text.shape[1]
+    chunk = _EXT_CHUNK
     while True:
-        v = M - ks2
-        can = ((M > _VALID_THRESH) & (M >= 0) & (M < tl)
-               & (v >= 0) & (v < pl))
-        adv = can & (_gather_cols(text, M) == _gather_cols(pattern, v))
-        if not bool(adv.any()):
-            return M
-        M = M + adv.to(M.dtype)
+        hh = h[:, None] + torch.arange(chunk, dtype=h.dtype, device=h.device)
+        vv = hh - k[:, None]
+        ok = (hh >= 0) & (hh < tl) & (vv >= 0) & (vv < pl)
+        eq = ok & (text[b[:, None], hh.clamp(0, Lt - 1).long()]
+                   == pattern[b[:, None], vv.clamp(0, Lp - 1).long()])
+        run = eq.to(torch.int32).cumprod(dim=1).sum(dim=1).to(h.dtype)
+        h = h + run
+        out[b, j] = h
+        full = run == chunk
+        if not bool(full.any()):
+            return out
+        b, j, h, k, pl, tl = (t[full] for t in (b, j, h, k, pl, tl))
+        chunk *= 2
 
 
 def keep_mask(heur, M, plen, tlen, ks):
@@ -227,12 +247,13 @@ def _candidates(m_x, i_src, d_src, plen, tlen, ks):
 
 
 def _next_affine(model, read_m, pattern, text, plen, tlen, ks,
-                 read_i, read_d, with_codes=False):
+                 read_i, read_d, with_codes=False, with_pre=False):
     """One gap-affine step: (M_s, I_s, D_s) from history accessors.
 
     ``read_m/read_i/read_d(delta)`` return the wavefront at score
     ``s - delta`` (NEG-filled when s - delta < 0).  With ``with_codes`` also
-    returns the provenance code planes ``(code_m, code_i, code_d)``.
+    returns the provenance code planes ``(code_m, code_i, code_d)``; with
+    ``with_pre`` the pre-extension M instead (the meet's split safety).
     """
     x, o, e = model.x, model.o, model.e
     m_owe = read_m(o + e)
@@ -246,6 +267,8 @@ def _next_affine(model, read_m, pattern, text, plen, tlen, ks,
                                       plen, tlen, ks)
     M_pre = torch.maximum(torch.maximum(X_new, I_new), D_new)
     M_new = _extend(M_pre, pattern, text, plen, tlen, ks)
+    if with_pre:
+        return M_new, I_new, D_new, M_pre
     if not with_codes:
         return M_new, I_new, D_new
     # tie-break X, then I, then D; extend over open (as the decoder expects)
@@ -254,9 +277,10 @@ def _next_affine(model, read_m, pattern, text, plen, tlen, ks,
 
 
 def _next_linear(model, read_m, pattern, text, plen, tlen, ks,
-                 with_codes=False):
+                 with_codes=False, with_pre=False):
     """One gap-linear step: M_s from the single M-history accessor (with
-    ``with_codes`` also the M provenance plane)."""
+    ``with_codes`` also the M provenance plane, with ``with_pre`` the
+    pre-extension M)."""
     x, e = model.x, model.e
     m_x = read_m(x)
     m_e = m_x if x == e else read_m(e)
@@ -264,6 +288,8 @@ def _next_linear(model, read_m, pattern, text, plen, tlen, ks,
                                       _shift_from_kp1(m_e), plen, tlen, ks)
     M_pre = torch.maximum(torch.maximum(X_new, I_new), D_new)
     M_new = _extend(M_pre, pattern, text, plen, tlen, ks)
+    if with_pre:
+        return M_new, M_pre
     if not with_codes:
         return M_new
     return M_new, _m_code(M_pre, X_new, I_new)
@@ -395,3 +421,237 @@ def wfa_scores_packed(pattern, text, plen, tlen, *, pen, s_max: int,
     return _solve(pattern, text, plen, tlen, pen, s_max, k_max, heur,
                   band_cap, packed=True, begin_state=begin_state,
                   end_state=end_state, device=device)
+
+
+class BidirMeetResult(NamedTuple):
+    """Per-pair breakpoint from the meet-in-the-middle solver.
+
+    ``score`` mirrors :class:`WFAResult` (``starget`` where a breakpoint
+    was found, ``-1`` where the fronts never joined).
+    """
+    score: torch.Tensor       # [B] int32: starget if met, -1 if not
+    n_steps: object           # lockstep trips taken (an int, or a 0-d
+                              # tensor from the kernel: no host sync)
+    meet_state: torch.Tensor  # [B] 0 = M/M, 1 = I/I, 2 = D/D; -1 unmet
+    meet_a: torch.Tensor      # [B] prefix-side cost at the breakpoint
+    meet_b: torch.Tensor      # [B] detector-internal reverse-side cost (gap
+                              #     joins re-charge the open; end-state I/D
+                              #     shifts by -o): the suffix child's cost
+                              #     is starget - meet_a
+    meet_k: torch.Tensor      # [B] forward diagonal k = h - v
+    meet_h: torch.Tensor      # [B] text offset h of the breakpoint
+    meet_safe: torch.Tensor   # [B] 1 = provably cost-exact split, 0 =
+                              #     accepted opportunistically (the BiWFA
+                              #     driver re-scores every stitched CIGAR)
+
+
+def _reverse_rows(codes, lens):
+    """Per-row suffix reversal: out[b, i] = codes[b, lens[b]-1-i], 0-padded
+    (every solver masks reads beyond plen/tlen)."""
+    L = codes.shape[1]
+    idx = (lens.reshape(-1, 1).to(torch.int32) - 1
+           - torch.arange(L, dtype=torch.int32, device=codes.device))
+    g = torch.gather(codes, 1, idx.clamp(0, max(L - 1, 0)).long())
+    return torch.where(idx >= 0, g, torch.zeros_like(g))
+
+
+def meet_window(model) -> int:
+    """Ring depth of the meet search, ``Wd = max(window, 2*maxop + 2)``: a
+    split within ``maxop`` of the half-cost point is always examined."""
+    maxop = max(model.x, model.o + model.e) if model.kind == "affine" \
+        else max(model.x, model.e)
+    return max(model.window, 2 * maxop + 2)
+
+
+def _meet_lockstep(model, heur, pattern, text, pat_rev, txt_rev, plen, tlen,
+                   starget, *, s_max: int, K: int, kc: int, begin_state: str,
+                   end_state: str, met0, block_pairs: int):
+    """Forward and reverse fronts in lockstep plus the meet test.
+
+    Shared by :func:`wfa_bidir_meet` (one block: the whole batch, ``K =
+    2*k_max+1``) and the meet kernel's plain version (blocks of
+    ``block_pairs`` with ``K = k_pad``).  ``plen``/``tlen``/``starget``/
+    ``met0`` are ``[B]``; pairs in ``met0`` start met.  A pair's fields
+    change only at the step it meets, so a block that has exited (all met)
+    is frozen.  -> (met, state, a, b, k, h, safe, steps [n_blocks], s).
+    """
+    dev = pattern.device
+    B = pattern.shape[0]
+    affine = model.kind == "affine"
+    o = model.o if affine else 0
+    # end_state I/D: the reverse rings seed the trailing gap run at 0 (it
+    # is the reversed problem's leading gap), so every reverse cost sits o
+    # below the forward-convention suffix cost; shift the target once
+    oend = o if end_state != "M" else 0
+    Wd = meet_window(model)
+    ks = torch.arange(K, dtype=torch.int32, device=dev) - kc
+    new = lambda *shape: torch.full(shape, NEG, dtype=torch.int32,
+                                    device=dev)
+    seed = new(B, K)
+    seed[:, kc] = 0
+
+    def ring0(row0):
+        ring = new(Wd, B, K)
+        ring[0] = row0
+        return ring
+
+    fm = ring0(_extend(seed, pattern, text, plen, tlen, ks))
+    fmp = ring0(seed)
+    rm = ring0(_extend(seed, pat_rev, txt_rev, plen, tlen, ks))
+    if affine:
+        fi = ring0(seed if begin_state == "I" else new(B, K))
+        fd = ring0(seed if begin_state == "D" else new(B, K))
+        ri = ring0(seed if end_state == "I" else new(B, K))
+        rd = ring0(seed if end_state == "D" else new(B, K))
+
+    # complement diagonal: the reverse lane addressing the same cell
+    jj = torch.arange(K, dtype=torch.int32, device=dev)[None, :]
+    jprime = (tlen - plen)[:, None] + 2 * kc - jj
+    jpok = (jprime >= 0) & (jprime < K)
+    jpc = jprime.clamp(0, K - 1).long()
+
+    def comp(arr):
+        return torch.where(jpok, torch.gather(arr, 1, jpc), NEG)
+
+    m2 = tlen[:, None]
+    low = ks.clamp(min=0)[None, :]
+    bidx = torch.arange(B, device=dev)
+    z = torch.zeros(B, dtype=torch.int32, device=dev)
+    met = met0.clone()
+    jst, ja, jb, jk, jh, jsf = z - 1, z, z, z, z, z
+    names = ["mm_safe"] + (["ii0", "dd0"] if affine else []) \
+        + ["mm_cov"] + (["ii_cov", "dd_cov"] if affine else [])
+    nblk = B // block_pairs
+
+    def block_live(s):
+        return (~met).view(nblk, block_pairs).any(dim=1) & (s <= s_max)
+
+    steps = torch.ones(nblk, dtype=torch.int32, device=dev)
+    live = block_live(1)
+    s = 1
+    while bool(live.any()):
+        rdr = lambda ring: _ring_reader(ring, s, Wd)
+        if affine:
+            Mf, If, Df, Mfp = _next_affine(model, rdr(fm), pattern, text,
+                                           plen, tlen, ks, rdr(fi), rdr(fd),
+                                           with_pre=True)
+            Mr, Ir, Dr = _next_affine(model, rdr(rm), pat_rev, txt_rev, plen,
+                                      tlen, ks, rdr(ri), rdr(rd))
+            Mf, If, Df, Mfp = _prune_step(heur, plen, tlen, ks, Mf, If, Df,
+                                          Mfp)
+            Mr, Ir, Dr = _prune_step(heur, plen, tlen, ks, Mr, Ir, Dr)
+        else:
+            Mf, Mfp = _next_linear(model, rdr(fm), pattern, text, plen, tlen,
+                                   ks, with_pre=True)
+            Mr = _next_linear(model, rdr(rm), pat_rev, txt_rev, plen, tlen,
+                              ks)
+            Mf, Mfp = _prune_step(heur, plen, tlen, ks, Mf, Mfp)
+            Mr = _prune_step(heur, plen, tlen, ks, Mr)
+        row = s % Wd
+        fm[row], fmp[row], rm[row] = Mf, Mfp, Mr
+        if affine:
+            fi[row], fd[row], ri[row], rd[row] = If, Df, Ir, Dr
+
+        def at(ring, c):
+            """Ring row at per-pair cost c [B] (NEG outside the window)."""
+            ok = (c >= 0) & (c <= s) & (c > s - Wd)
+            sel = ring[(c.clamp(min=0) % Wd).long(), bidx]
+            return torch.where(ok[:, None], sel, NEG)
+
+        def orient(a_m, a_g, b_m, b_g):
+            """Candidate classes for prefix costs a_*, suffix costs b_*:
+            {name: (mask [B,K], state, a, b, h [B,K], safe)}; a_m + b_m sum
+            to starget (M/M), a_g + b_g to starget + o (gap joins)."""
+            fa_m, fa_mp = at(fm, a_m), at(fmp, a_m)
+            rb_m = comp(at(rm, b_m))
+            vmm = (fa_m > _VALID_THRESH) & (rb_m > _VALID_THRESH)
+            cov = vmm & (fa_m + rb_m >= m2)
+            h_mm = torch.minimum(torch.maximum(m2 - rb_m, low),
+                                 torch.maximum(fa_m, low))
+            out = {"mm_safe": (cov & (fa_mp + rb_m <= m2), 0, a_m, b_m,
+                               h_mm, 1),
+                   "mm_cov": (cov, 0, a_m, b_m, h_mm, 0)}
+            if affine:
+                fa_i, rb_i = at(fi, a_g), comp(at(ri, b_g))
+                fa_d, rb_d = at(fd, a_g), comp(at(rd, b_g))
+                vii = (fa_i > _VALID_THRESH) & (rb_i > _VALID_THRESH)
+                vdd = (fa_d > _VALID_THRESH) & (rb_d > _VALID_THRESH)
+                out["ii0"] = (vii & (fa_i + rb_i == m2), 1, a_g, b_g, fa_i,
+                              1)
+                out["dd0"] = (vdd & (fa_d + rb_d == m2), 2, a_g, b_g, fa_d,
+                              1)
+                out["ii_cov"] = (vii & (fa_i + rb_i >= m2), 1, a_g, b_g,
+                                 fa_i, 0)
+                out["dd_cov"] = (vdd & (fa_d + rb_d >= m2), 2, a_g, b_g,
+                                 fa_d, 0)
+            return out
+
+        sb = z + s
+        st2 = starget - oend
+        A = orient(sb, sb, st2 - s, st2 + o - s)
+        Bo = orient(st2 - s, st2 + o - s, sb, sb)
+        # priority: class by class, orientation A before B; a pair takes
+        # the first slot that holds a lane, at its lowest lane
+        slots = [side[name] for name in names for side in (A, Bo)]
+        field = lambda i: torch.stack([sl[i] for sl in slots])
+        const = lambda i: torch.tensor([sl[i] for sl in slots],
+                                       dtype=torch.int32, device=dev)
+        masks = field(0)                                    # [S, B, K]
+        anyk = masks.any(dim=2)                             # [S, B]
+        first = anyk.to(torch.int32).argmax(dim=0)          # [B]
+        lane = masks[first, bidx].to(torch.int32).argmax(dim=1)
+        take = ~met & anyk.any(dim=0)
+        met = met | take
+        jst = torch.where(take, const(1)[first], jst)
+        ja = torch.where(take, field(2)[first, bidx], ja)
+        jb = torch.where(take, field(3)[first, bidx], jb)
+        jk = torch.where(take, lane.to(torch.int32) - kc, jk)
+        jh = torch.where(take, field(4)[first, bidx, lane], jh)
+        jsf = torch.where(take, const(5)[first], jsf)
+        s += 1
+        nxt = live & block_live(s)
+        steps = torch.where(live & ~nxt, s, steps)
+        live = nxt
+    return met, jst, ja, jb, jk, jh, jsf, steps, s
+
+
+def wfa_bidir_meet(pattern, text, plen, tlen, starget, *, pen, s_max: int,
+                   k_max: int, heur=None, begin_state: str = "M",
+                   end_state: str = "M", device=None) -> BidirMeetResult:
+    """Meet-in-the-middle BiWFA breakpoint solver (O(s) memory).
+
+    A forward wavefront on ``(p, t)`` and a reverse wavefront on the
+    reversed pair step in lockstep, keeping only rolling windows of depth
+    ``Wd = max(window, 2*max(x, o+e) + 2)``.  ``starget`` ([B]) is each
+    pair's known optimal cost; the solver looks for a *breakpoint*: a cell
+    reached forward at cost ``a`` and backward at cost ``b`` with ``a + b
+    == starget`` (M/M) or ``a + b == starget + o`` (inside one gap run,
+    I/I or D/D: both halves charge the open).  Forward diagonal ``k`` and
+    reverse diagonal ``(m-n) - k`` address the same cell, and coverage
+    ``h_f + h_r >= m`` on complementary diagonals joins both coordinates.
+    Each step ``s`` examines the splits ``(s, T-s)`` and ``(T-s, s)``.
+
+    An M/M candidate is provably exact when the split offset fits both
+    furthest-reaching match runs (pre-extension forward value ``<= m -
+    h_rev``); gap joins are exact at exact coverage; other coverage
+    overshoots are accepted with ``meet_safe = 0`` (the BiWFA driver
+    re-scores every stitched CIGAR).  A non-exact heuristic prunes both
+    fronts as the forward solvers do.  Unresolved pairs have ``score =
+    -1``.  The whole batch stops when every pair has met (or at
+    ``s_max``); ``n_steps`` is that step.
+    """
+    model, heur = _resolve(pen, heur)
+    _check_states(model, begin_state, end_state)
+    pattern, text, plen, tlen = _prep(pattern, text, plen, tlen, device)
+    starget = torch.as_tensor(starget, device=pattern.device).to(
+        torch.int32).reshape(-1)
+    B = pattern.shape[0]
+    met, jst, ja, jb, jk, jh, jsf, _, s = _meet_lockstep(
+        model, heur, pattern, text, _reverse_rows(pattern, plen),
+        _reverse_rows(text, tlen), plen, tlen, starget, s_max=s_max,
+        K=2 * k_max + 1, kc=k_max, begin_state=begin_state,
+        end_state=end_state, met0=torch.zeros(B, dtype=torch.bool,
+                                              device=pattern.device),
+        block_pairs=max(B, 1))
+    return BidirMeetResult(torch.where(met, starget, -1), s,
+                           torch.where(met, jst, -1), ja, jb, jk, jh, jsf)

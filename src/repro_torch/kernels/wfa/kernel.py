@@ -2,8 +2,10 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/wfa/kernel.py::wfa_pallas``
 (body ``_make_kernel``) in its score (``trace=False``) and packed-trace
-(``trace=True``) variants; the compacting band (``band_cap``) is not ported
-yet.  Both versions here compute exactly what the Pallas kernel computes:
+(``trace=True``) variants, and ``wfa_meet_pallas`` (body
+``_make_meet_kernel``), the BiWFA meet search; the compacting band
+(``band_cap``) is not ported yet.  Both versions here compute exactly what
+the Pallas kernels compute:
 
 * pairs in blocks of ``block_pairs``; each block runs its own score loop
   and exits once all its pairs are resolved (or ``s`` passes ``s_max``);
@@ -16,7 +18,11 @@ yet.  Both versions here compute exactly what the Pallas kernel computes:
 
 :func:`wfa_kernel` is the entry point: a CUDA tensor launches the kernel of
 ``csrc/wfa.cu`` (and raises if it cannot), a CPU tensor runs
-:func:`wfa_plain`.  :data:`LAUNCHES` counts kernel launches per variant.
+:func:`wfa_plain`.  :func:`wfa_meet_kernel` does the same for the meet
+search (``csrc/wfa_meet.cu`` / :func:`wfa_meet_plain`): forward and reverse
+fronts over ``[Wd, BP, k_pad]`` rings (seven for affine models, three for
+linear), outputs eight ``[B, 1]`` int32 arrays (score, steps, state, a, b,
+k, h, safe).  :data:`LAUNCHES` counts kernel launches per variant.
 """
 from __future__ import annotations
 
@@ -26,9 +32,9 @@ from repro_torch.core import scoring
 from repro_torch.core import wavefront as wf
 from repro_torch.core.scoring import AdaptiveBand, ZDrop
 
-# Kernel launches per variant ("score" / "trace"); the plain version does
-# not count.
-LAUNCHES = {"score": 0, "trace": 0}
+# Kernel launches per variant ("score" / "trace" / "meet"); the plain
+# versions do not count.
+LAUNCHES = {"score": 0, "trace": 0, "meet": 0}
 
 
 def reset_launches() -> None:
@@ -209,3 +215,104 @@ def wfa_kernel(pattern, text, plen, tlen, *, pen, s_max: int, k_pad: int,
     fn = wfa_cuda if pattern.device.type == "cuda" else wfa_plain
     return fn(pattern, text, plen, tlen, pen=pen, s_max=s_max, k_pad=k_pad,
               block_pairs=block_pairs, trace=trace, heur=heur)
+
+
+def _check_meet(pattern, text, pat_rev, txt_rev, plen, tlen, starget,
+                block_pairs, k_pad):
+    _check(pattern, text, plen, tlen, block_pairs, k_pad)
+    B = pattern.shape[0]
+    for name, t, shape in (("pat_rev", pat_rev, tuple(pattern.shape)),
+                           ("txt_rev", txt_rev, tuple(text.shape)),
+                           ("starget", starget, (B, 1))):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if t.device != pattern.device:
+            raise ValueError(f"{name} is on {t.device}, pattern on "
+                             f"{pattern.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+
+
+def wfa_meet_plain(pattern, text, pat_rev, txt_rev, plen, tlen, starget, *,
+                   pen, s_max: int, k_pad: int, block_pairs: int, heur=None,
+                   begin_state: str = "M", end_state: str = "M"):
+    """Plain PyTorch version of the meet kernel (any device).
+
+    The shared lockstep solver of ``core.wavefront`` at the kernel's
+    conventions: ``k_pad`` lanes centred at ``k_pad // 2``, pairs in blocks
+    with a per-block exit step, and padded rows (``plen = tlen = 0``)
+    counted as met from the start but reported unmet.
+    -> (score, steps, state, a, b, k, h, safe), each ``[B, 1]`` int32.
+    """
+    model = scoring.as_model(pen)
+    heur = scoring.as_heuristic(heur)
+    wf._check_states(model, begin_state, end_state)
+    _check_meet(pattern, text, pat_rev, txt_rev, plen, tlen, starget,
+                block_pairs, k_pad)
+    pl, tl, st = plen[:, 0], tlen[:, 0], starget[:, 0]
+    met0 = (pl == 0) & (tl == 0)
+    met, jst, ja, jb, jk, jh, jsf, steps, _ = wf._meet_lockstep(
+        model, heur, pattern, text, pat_rev, txt_rev, pl, tl, st,
+        s_max=int(s_max), K=k_pad, kc=k_pad // 2, begin_state=begin_state,
+        end_state=end_state, met0=met0, block_pairs=block_pairs)
+    hit = met & ~met0
+    cols = (torch.where(hit, st, -1),
+            steps.repeat_interleave(block_pairs),
+            torch.where(hit, jst, -1), ja, jb, jk, jh, jsf)
+    return tuple(c.to(torch.int32)[:, None] for c in cols)
+
+
+def wfa_meet_cuda(pattern, text, pat_rev, txt_rev, plen, tlen, starget, *,
+                  pen, s_max: int, k_pad: int, block_pairs: int, heur=None,
+                  begin_state: str = "M", end_state: str = "M"):
+    """Launch the CUDA meet kernel on the current stream (no
+    synchronisation); same arguments and returns as
+    :func:`wfa_meet_plain`."""
+    from repro_torch.kernels.wfa import build
+
+    model = scoring.as_model(pen)
+    heur = scoring.as_heuristic(heur)
+    wf._check_states(model, begin_state, end_state)
+    _check_meet(pattern, text, pat_rev, txt_rev, plen, tlen, starget,
+                block_pairs, k_pad)
+    if pattern.device.type != "cuda":
+        raise ValueError(f"wfa_meet_cuda needs CUDA tensors, got "
+                         f"{pattern.device}")
+    lib = build.load()
+    ins = tuple(t.contiguous() for t in (pattern, text, pat_rev, txt_rev,
+                                         plen, tlen, starget))
+    dev = pattern.device
+    B = pattern.shape[0]
+    affine = model.kind == "affine"
+    Wd = wf.meet_window(model)
+    outs = tuple(torch.empty((B, 1), dtype=torch.int32, device=dev)
+                 for _ in range(8))
+    kind, hp1, hp2 = _heur_args(heur)
+    n_scratch = lib.wfa_meet_scratch_ints(B, block_pairs, k_pad, Wd,
+                                          int(affine))
+    scratch = torch.empty(n_scratch, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):     # launch on the tensors' card
+        rc = lib.wfa_meet_launch(
+            *(t.data_ptr() for t in ins + outs), scratch.data_ptr(),
+            B, pattern.shape[1], text.shape[1], block_pairs, k_pad,
+            int(s_max), model.x, model.o, model.e, Wd, int(affine), kind,
+            hp1, hp2, wf.STATES.index(begin_state),
+            wf.STATES.index(end_state),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"WFA meet kernel launch failed: "
+                           f"{lib.wfa_error_string(rc).decode()} ({rc})")
+    LAUNCHES["meet"] += 1
+    return outs
+
+
+def wfa_meet_kernel(pattern, text, pat_rev, txt_rev, plen, tlen, starget, *,
+                    pen, s_max: int, k_pad: int, block_pairs: int,
+                    heur=None, begin_state: str = "M",
+                    end_state: str = "M"):
+    """-> the eight ``[B, 1]`` meet outputs.  CUDA tensors run the CUDA
+    kernel; CPU tensors the plain version."""
+    fn = wfa_meet_cuda if pattern.device.type == "cuda" else wfa_meet_plain
+    return fn(pattern, text, pat_rev, txt_rev, plen, tlen, starget, pen=pen,
+              s_max=s_max, k_pad=k_pad, block_pairs=block_pairs, heur=heur,
+              begin_state=begin_state, end_state=end_state)

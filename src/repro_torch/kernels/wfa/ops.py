@@ -1,4 +1,8 @@
-"""Wrapper around the WFA kernel: padding, blocking, unpadding.
+"""Wrappers around the WFA kernels: padding, blocking, unpadding.
+
+``wfa_align`` / ``wfa_align_trace`` drive the WFA kernel (scores, packed
+trace); ``wfa_bidir_meet_kernel`` drives the BiWFA meet kernel and also
+hands it the per-row reversed sequences, reversed on the device.
 
 The padding contract of the JAX package's ``kernels/wfa/ops.py``: the pair
 axis pads to a multiple of ``block_pairs`` with padded pairs of
@@ -28,8 +32,9 @@ from typing import Optional
 import torch
 
 from repro_torch.core import scoring
-from repro_torch.core.wavefront import resolve_device
-from repro_torch.kernels.wfa.kernel import wfa_kernel
+from repro_torch.core.wavefront import (BidirMeetResult, _reverse_rows,
+                                        resolve_device)
+from repro_torch.kernels.wfa.kernel import wfa_kernel, wfa_meet_kernel
 
 LANE = 128
 DEFAULT_BLOCK_PAIRS = 8
@@ -101,3 +106,31 @@ def wfa_align_trace(pattern, text, plen, tlen, *, pen, s_max: int,
     score, _, *bts = out
     bts = [bt[:, :B, :] for bt in bts] + [None, None]
     return (score[:B, 0], *bts[:3])
+
+
+def wfa_bidir_meet_kernel(pattern, text, plen, tlen, starget, *, pen,
+                          s_max: int, k_max: int, heur=None,
+                          begin_state: str = "M", end_state: str = "M",
+                          block_pairs: Optional[int] = None, device=None):
+    """BiWFA meet search via the meet kernel: the signature and
+    ``BidirMeetResult`` of ``core.wavefront.wfa_bidir_meet``, selected by
+    the ``kernel`` backend for the BiWFA driver's meet waves.  Each block of
+    ``block_pairs`` exits as soon as its own pairs have met; ``n_steps`` is
+    the largest block's exit step, a 0-d tensor on ``device``."""
+    bp = resolve_block_pairs(block_pairs)
+    pattern2, text2, plen2, tlen2, B = _prep(pattern, text, plen, tlen, bp,
+                                             device)
+    st = torch.as_tensor(starget, device=pattern2.device).to(
+        torch.int32).reshape(-1, 1)
+    starget2 = torch.nn.functional.pad(st, (0, 0, 0,
+                                            pattern2.shape[0] - B))
+    (score, steps, state, a, b, k, h,
+     safe) = wfa_meet_kernel(
+        pattern2, text2, _reverse_rows(pattern2, plen2[:, 0]),
+        _reverse_rows(text2, tlen2[:, 0]), plen2, tlen2, starget2, pen=pen,
+        s_max=int(s_max), k_pad=_round_up(2 * int(k_max) + 1, LANE),
+        block_pairs=bp, heur=scoring.as_heuristic(heur),
+        begin_state=begin_state, end_state=end_state)
+    return BidirMeetResult(score[:B, 0], steps.max(), state[:B, 0],
+                           a[:B, 0], b[:B, 0], k[:B, 0], h[:B, 0],
+                           safe[:B, 0])

@@ -14,8 +14,16 @@ back to back.  Throughput is reported both ways the paper does: *Total*
 
 ``--backend ring|kernel`` selects a registered backend
 (``repro_torch.core.backends``); ``--output score|cigar`` the result
-pathway (``cigar``: full alignments via the packed backtrace, with
-identity stats); ``--penalties``/``--heuristic`` the scoring model and
+pathway (``cigar``: full alignments, with identity stats); ``--trace
+packed|bidir`` how CIGARs are made: the packed backtrace, or the BiWFA
+meet-in-the-middle recursion (``repro_torch.biwfa``: exact CIGARs in O(s)
+trace memory, for noisy long reads)::
+
+    python -m repro_torch.launch.align --backend kernel --output cigar \\
+        --trace bidir --pairs 1024 --read-len 10000 --edit-frac 0.03 \\
+        --verify 4
+
+``--penalties``/``--heuristic`` the scoring model and
 wavefront pruning; ``--reads``/``--refs`` real FASTA/FASTQ(.gz) pair files
 in place of the synthetic generator; ``--device`` where the waves run
 (default ``cuda``).  SAM output waits for the mapping package's port.
@@ -81,6 +89,12 @@ def main(argv=None, summary: Optional[dict] = None) -> int:
     ap.add_argument("--output", choices=("score", "cigar"),
                     default="score",
                     help="scores only (default) or full CIGAR alignments")
+    ap.add_argument("--trace", choices=("packed", "bidir"),
+                    default="packed",
+                    help="traceback variant for --output cigar: 'packed' "
+                         "(2-bit backtrace, O(s^2) trace memory) or 'bidir' "
+                         "(BiWFA meet-in-the-middle recursion, O(s) trace "
+                         "memory: use for long reads)")
     ap.add_argument("--submit-pairs", type=int, default=None,
                     help="pairs per session submit (default: "
                          "--chunk-pairs)")
@@ -136,7 +150,7 @@ def main(argv=None, summary: Optional[dict] = None) -> int:
                              chunk_pairs=args.chunk_pairs,
                              bucket_by_length=not args.no_bucket,
                              adaptive=not args.no_adaptive,
-                             device=args.device)
+                             trace_variant=args.trace, device=args.device)
     submit_pairs = args.submit_pairs or args.chunk_pairs
     # warmup with the identical batch so the measured run is steady-state
     # (every specialisation and the kernel's library loaded); a submit-sized
@@ -177,8 +191,9 @@ def main(argv=None, summary: Optional[dict] = None) -> int:
         if mode == "stream":
             extra = (f" submits={st.n_submits} waves={st.n_waves} "
                      f"inflight<={st.max_inflight} (peak {st.peak_inflight})")
-        log(f"[align] {mode}: backend={args.backend} output={out_mode} "
-            f"device={engine.device} buckets={st.n_buckets} "
+        trace = f" trace={args.trace}" if out_mode == "cigar" else ""
+        log(f"[align] {mode}: backend={args.backend} output={out_mode}"
+            f"{trace} device={engine.device} buckets={st.n_buckets} "
             f"cache={st.cache_hits}h/{st.cache_misses}m "
             f"first_uses={st.n_traces}{extra}")
         log(f"[align] {mode}: scatter {pim.t_scatter:.4f}s  "
@@ -207,6 +222,12 @@ def main(argv=None, summary: Optional[dict] = None) -> int:
             log(f"[align] {mode}: cigars: {cols} alignment columns, "
                 f"identity mean={ident.mean():.4f} min={ident.min():.4f} "
                 f"(gather incl. traceback: {pim.t_gather:.3f}s)")
+            log(f"[align] {mode}: peak_trace_bytes={st.peak_trace_bytes} "
+                f"n_bidir_fallback={st.n_bidir_fallback} "
+                f"n_meet_unmet={st.n_meet_unmet}")
+            summary[mode].update(peak_trace_bytes=st.peak_trace_bytes,
+                                 n_bidir_fallback=st.n_bidir_fallback,
+                                 n_meet_unmet=st.n_meet_unmet)
     summary["scores"] = scores
     summary["cigars"] = cigars
     if args.mode == "both":

@@ -88,6 +88,11 @@ def test_registry_and_backend_opts():
         assert spec.supports_cigar and spec.accepts_heuristic("cigar")
         assert spec.models == ("affine", "linear")
     assert t_backends.get_backend("ring").accepts_states()
+    # the CUDA trace kernel takes no boundary states (stateful BiWFA leaves
+    # go to ring); the kernel backend ships the meet kernel
+    kspec = t_backends.get_backend("kernel")
+    assert not kspec.accepts_states() and kspec.meet_variant is not None
+    assert t_backends.get_backend("ring").meet_variant is None
     AlignmentEngine(backend="kernel", device="cpu",
                     backend_opts={"block_pairs": 4, "gather": "index",
                                   "ext_stride": 2})
@@ -117,11 +122,16 @@ def test_no_card_means_no_engine(monkeypatch):
 
 
 def test_bidir_not_ported():
-    with pytest.raises(NotImplementedError, match="bidir"):
-        AlignmentEngine(device="cpu", trace_variant="bidir")
+    """The bidir trace variant is accepted per engine and per call, and an
+    unknown one is refused (the BiWFA path itself: test_torch_biwfa)."""
+    eng = AlignmentEngine(device="cpu", trace_variant="bidir")
+    assert eng.align(["ACGT"], ["ACGA"], output="cigar").cigar_strings() \
+        == ["3=1X"]
     eng = AlignmentEngine(device="cpu", edit_frac=0.05)
-    with pytest.raises(NotImplementedError, match="bidir"):
-        eng.align(["ACGT"], ["ACGA"], output="cigar", trace_variant="bidir")
+    res = eng.align(["ACGT"], ["ACGA"], output="cigar", trace_variant="bidir")
+    assert res.scores[0] == 4 and res.cigar_strings() == ["3=1X"]
+    with pytest.raises(ValueError, match="trace variant"):
+        eng.align(["ACGT"], ["ACGA"], output="cigar", trace_variant="full")
     # score output ignores the trace variant, as in the reference
     assert eng.align(["ACGT"], ["ACGA"], trace_variant="bidir").scores[0] == 4
 
@@ -193,10 +203,14 @@ def test_port_imports_neither_jax_nor_reference():
         "from repro_torch.core import AlignmentEngine\n"
         "from repro_torch.launch import align\n"
         "from repro_torch.kernels.wfa import build, kernel, ops, ref\n"
-        "from repro_torch import obs, configs, data\n"
+        "from repro_torch import obs, configs, data, biwfa\n"
         "r = AlignmentEngine(backend='kernel', edit_frac=0.05, "
         "device='cpu').align(['ACGTACGTAA'], ['ACGAACGTA'], output='cigar')\n"
         "assert r.scores[0] >= 0, r.scores\n"
+        "b = AlignmentEngine(backend='kernel', trace_budget=8, "
+        "device='cpu').align(['ACGTACGTAAGGATTACA' * 4], "
+        "['ACGAACGTAGGATTTACA' * 4], output='cigar', trace_variant='bidir')\n"
+        "assert b.scores[0] > 0, b.scores\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
