@@ -30,7 +30,27 @@ Phases (each raises on failure, and the script then exits non-zero):
    back, the scores must equal an ``--output score`` run of the same
    pairs, and block 0 of every meet wave the path launched must equal the
    plain version on the same rows;
-7. report — a ``kernels`` JSON line, the card's name and power limit, and
+7. band kernel vs plain — the CUDA band kernel (the compacting band,
+   ``band_cap``) against its plain version over {GapAffine(4,6,2),
+   GapLinear, Edit} x {AdaptiveBand(), ZDrop(), AdaptiveBand(10,4),
+   ZDrop(8)} x {score, trace} on 256 pairs of 1 kb at exact-bucket bounds
+   (``k_pad`` 2,176, so every band is narrower), plus a 512-lane band whose
+   affine rings live in global scratch; scores, steps and trace words
+   equal.  Then at the 10 kb root shape (GapAffine(4,6,2), AdaptiveBand(),
+   ``k_pad`` 4,992, 128 lanes): block 0 against the plain version (score on
+   the 1,024-pair wave, trace on the 64-pair wave), the band timed on the
+   full waves, and the full-width kernel, heuristic and exact, timed on the
+   same wave;
+8. banded path — ``AlignmentEngine(GapAffine(4,6,2), backend="kernel",
+   heuristic=AdaptiveBand(), backend_opts={"band_cap": "auto"})`` on the
+   1,024 pairs of 10 kb: ``output="score"`` blocking and streamed,
+   ``output="cigar", trace_variant="bidir"``, and the packed CIGAR path on
+   the first 64 pairs; the band launch counts must rise, every CIGAR must
+   re-score to its cost, no meet may go unmet or fall back, and 4 scores
+   must be upper bounds of the Gotoh optimum; the same runs on the ``ring``
+   backend (one window per pair) are the yardstick, and the counts of pairs
+   equal to the full-width heuristic run are printed;
+9. report — a ``kernels`` JSON line, the card's name and power limit, and
    the final ``{"ok": true, ...}`` line.
 
 It needs one card and exits non-zero without one.  It imports nothing of
@@ -60,6 +80,10 @@ LONG_LEN = 10000
 LONG_EDIT = 0.03
 LONG_BUCKET = 16384     # the engine's power-of-two bucket for 10 kb pairs
 ROOT_PLAIN_PAIRS = 8    # the root wave's plain version runs on one block
+BAND_GRID_PAIRS = 256   # the band grid: pairs of 1 kb
+BAND_GRID_LEN = 1000
+BAND_PACKED_PAIRS = 64  # packed CIGARs at 10 kb: 309 words x 64 x 4,992 x 3
+                        # planes x 4 B = 1.18 GB of trace
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 INT32_OPS_PER_S = 16.7e12      # 132 SMs x 64 INT32 lanes x 1.98 GHz
 
@@ -100,6 +124,22 @@ def max_abs_err(a, b) -> int:
                                  f"{tuple(y.shape)}")
         err = max(err, int((x.long() - y.long()).abs().max().item()))
     return err
+
+
+def kernel_bound(plen, tlen, out_bytes):
+    """The least time the card could take for one WFA wave -> (ms, "bytes"
+    | "operations", bytes, compares): each int32 character of a sequence up
+    to its length (the padding columns are never read), both lengths and
+    the outputs once, over the memory rate; one compare per aligned column,
+    min(plen, tlen) per pair, over the INT32 rate."""
+    import numpy as np
+    lens = plen.astype(np.int64) + tlen
+    nbytes = 4 * int(lens.sum()) + 2 * 4 * len(plen) + out_bytes
+    ops = int(np.minimum(plen, tlen).astype(np.int64).sum())
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes, ops)
 
 
 def wave_inputs(P, plen, T, tlen, n, width, dev):
@@ -157,19 +197,11 @@ def phase_grid(K, S, eng_for, P, plen, T, tlen, dev):
 def phase_wave_timing(K, S, eng, P, plen, T, tlen, dev):
     """Phase 3b: both variants at the main path's wave shape (65,536 pairs
     of pass 1, GapAffine, exact) -> per-variant timing records."""
-    import numpy as np
     width = 128
     args = wave_inputs(P, plen, T, tlen, WAVE, width, dev)
     s_max, k_max = eng._bounds_for_bucket(width, plen[:WAVE], tlen[:WAVE],
                                           False)
     k_pad = -(-(2 * k_max + 1) // 128) * 128
-    # least bytes the function needs on these inputs: each int32 character
-    # of a sequence up to its length (the padding columns of the rows are
-    # never read) and each pair's two lengths, read once
-    lens = plen[:WAVE].astype(np.int64) + tlen[:WAVE]
-    in_bytes = 4 * int(lens.sum()) + 2 * 4 * WAVE
-    # least work: one comparison per aligned column, min(plen, tlen) per pair
-    ops = int(np.minimum(plen[:WAVE], tlen[:WAVE]).astype(np.int64).sum())
     out = {}
     for trace in (False, True):
         kw = dict(pen=eng.pen, s_max=s_max, k_pad=k_pad, block_pairs=8,
@@ -184,17 +216,14 @@ def phase_wave_timing(K, S, eng, P, plen, T, tlen, dev):
         out_bytes = sum(t.numel() * t.element_size() for t in got)
         k_ms = cuda_ms(lambda: K.wfa_cuda(*args, **kw), 20)
         p_ms = cuda_ms(lambda: K.wfa_plain(*args, **kw), 2)
-        bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / INT32_OPS_PER_S * 1e3
+        bound, by, nbytes, ops = kernel_bound(plen[:WAVE], tlen[:WAVE],
+                                              out_bytes)
         name = "wfa_trace" if trace else "wfa_score"
-        out[name] = dict(
-            max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-            bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        out[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                         bound_ms=bound, bound_by=by)
         log(f"[wave] {name}: {WAVE} pairs, s_max={s_max} k_pad={k_pad}: "
             f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
-            f"{max(bytes_ms, ops_ms):.4f} ms ({out[name]['bound_by']}: "
-            f"{in_bytes + out_bytes} bytes, {ops} compares)")
+            f"{bound:.4f} ms ({by}: {nbytes} bytes, {ops} compares)")
     return out
 
 
@@ -435,7 +464,7 @@ def phase_bidir_path(K, root):
         raise AssertionError("launcher failed on the BiWFA path")
     log(f"[bidir] BiWFA path in {time.perf_counter() - t0:.1f}s; launches "
         f"{launches}")
-    if min(launches.values()) == 0:
+    if min(launches[k] for k in ("score", "trace", "meet")) == 0:
         raise AssertionError(f"the BiWFA path missed a kernel: {launches}")
     if bidir.get("verified") != 4:
         raise AssertionError("the BiWFA launcher did not verify 4 pairs")
@@ -467,6 +496,263 @@ def phase_bidir_path(K, root):
     return launches, bidir, packed, err
 
 
+def slice_block(outs, n):
+    """The first ``n`` pairs of a kernel's outputs ([B, 1] columns, [NW, B,
+    k_pad] planes)."""
+    return tuple(t[:n] if t.dim() == 2 else t[:, :n] for t in outs)
+
+
+def phase_band_grid(K, S, ops, dev):
+    """Phase 7: the CUDA band kernel vs its plain version on 1 kb pairs ->
+    (max |err| of the score cases, of the trace cases)."""
+    from repro_torch.core.engine import AlignmentEngine
+    from repro_torch.data.reads import ReadPairSpec, generate_pairs
+    n = BAND_GRID_PAIRS
+    P, plen, T, tlen = generate_pairs(ReadPairSpec(
+        n_pairs=n, read_len=BAND_GRID_LEN, edit_frac=LONG_EDIT, seed=1))
+    args = wave_inputs(P, plen, T, tlen, n, max(P.shape[1], T.shape[1]),
+                       dev)
+    worst = {False: 0, True: 0}
+    for pen in (S.GapAffine(4, 6, 2), S.GapLinear(), S.Edit()):
+        eng = AlignmentEngine(pen, backend="kernel", edit_frac=LONG_EDIT,
+                              device=dev)
+        s_max, k_max = eng._bounds_for_bucket(1024, plen, tlen, True)
+        k_pad = -(-(2 * k_max + 1) // 128) * 128
+        cases = [(h, ops._band_lanes(h.band_cap(2 * k_max + 1), k_pad))
+                 for h in (S.AdaptiveBand(), S.ZDrop(), S.AdaptiveBand(10, 4),
+                           S.ZDrop(8))]
+        cases.append((None, 512))       # affine rings in global scratch
+        for heur, cap in cases:
+            if cap is None or cap >= k_pad:
+                raise AssertionError(f"the band does not engage: {heur} "
+                                     f"cap {cap} k_pad {k_pad}")
+            for trace in (False, True):
+                kw = dict(pen=pen, s_max=s_max, k_pad=k_pad, block_pairs=8,
+                          trace=trace, heur=heur, band_cap=cap)
+                got = K.wfa_cuda(*args, **kw)
+                torch_sync()
+                want = K.wfa_plain(*args, **kw)
+                err = max_abs_err(got, want)
+                worst[trace] = max(worst[trace], err)
+                if err:
+                    raise AssertionError(
+                        f"band kernel != plain: {pen} {heur} band {cap} "
+                        f"trace={trace} max|err|={err}")
+                k_ms = cuda_ms(lambda: K.wfa_cuda(*args, **kw), 3)
+                log(f"[band] {type(pen).__name__:9s} "
+                    f"{str(heur or 'exact'):44s} "
+                    f"{'trace' if trace else 'score'} band {cap:3d} of "
+                    f"k_pad {k_pad}: equal; kernel {k_ms:8.3f} ms")
+    return worst[False], worst[True]
+
+
+def phase_band_root(K, S, ops, dev):
+    """Phase 7b: the band at the 10 kb root shape -> timing records for the
+    score (1,024-pair wave) and trace (64-pair wave) variants.  Block 0 of
+    each is held against the plain version; the full-width kernel,
+    heuristic and exact, is timed on the same score wave."""
+    from repro_torch.core.engine import AlignmentEngine
+    from repro_torch.data.reads import ReadPairSpec, generate_pairs
+    P, plen, T, tlen = generate_pairs(ReadPairSpec(
+        n_pairs=LONG_PAIRS, read_len=LONG_LEN, edit_frac=LONG_EDIT, seed=0))
+    pen, heur = S.GapAffine(4, 6, 2), S.AdaptiveBand()
+    eng = AlignmentEngine(pen, backend="kernel", edit_frac=LONG_EDIT,
+                          device=dev)
+    s1, k1 = eng._bounds_for_bucket(LONG_BUCKET, plen, tlen, False)
+    k_pad = -(-(2 * k1 + 1) // 128) * 128
+    cap = ops._band_lanes(heur.band_cap(2 * k1 + 1), k_pad)
+    args = wave_inputs(P, plen, T, tlen, LONG_PAIRS,
+                       max(P.shape[1], T.shape[1]), dev)
+    n = ROOT_PLAIN_PAIRS
+    out = {}
+    for trace, pairs in ((False, LONG_PAIRS), (True, BAND_PACKED_PAIRS)):
+        wave = tuple(a[:pairs] for a in args)
+        kw = dict(pen=pen, s_max=s1, k_pad=k_pad, block_pairs=8,
+                  trace=trace, heur=heur)
+        got = K.wfa_cuda(*wave, band_cap=cap, **kw)
+        torch_sync()
+        t0 = time.perf_counter()
+        want = K.wfa_plain(*(a[:n] for a in wave), band_cap=cap, **kw)
+        torch_sync()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        err = max_abs_err(slice_block(got, n), want)
+        if err:
+            raise AssertionError(f"band kernel != plain at the 10 kb shape "
+                                 f"(trace={trace}): max|err|={err}")
+        out_bytes = sum(t.numel() * t.element_size() for t in got)
+        del got
+        k_ms = cuda_ms(lambda: K.wfa_cuda(*wave, band_cap=cap, **kw), 3)
+        k_ms_n = cuda_ms(lambda: K.wfa_cuda(*(a[:n] for a in wave),
+                                            band_cap=cap, **kw), 3)
+        bound, by, nbytes, nops = kernel_bound(plen[:pairs], tlen[:pairs],
+                                               out_bytes)
+        name = "wfa_band_trace" if trace else "wfa_band_score"
+        rec = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                   ms_on_plain_inputs=k_ms_n, plain_pairs=n, pairs=pairs,
+                   bound_ms=bound, bound_by=by, band=cap, k_pad=k_pad,
+                   s_max=s1)
+        log(f"[band] {name}: {pairs} pairs of {LONG_LEN} bp, s_max={s1} "
+            f"k_pad={k_pad}, band {cap}: kernel {k_ms:.3f} ms ({k_ms_n:.3f} "
+            f"ms on the first {n}), plain {p_ms:.1f} ms on the first {n} "
+            f"(equal), bound {bound:.5f} ms ({by}: {nbytes} bytes, {nops} "
+            f"compares)")
+        if not trace:
+            full = K.wfa_cuda(*wave, **kw)[0]
+            band = K.wfa_cuda(*wave, band_cap=cap, **kw)[0]
+            rec["equal_full_width"] = int((full == band).sum())
+            rec["full_heur_ms"] = cuda_ms(lambda: K.wfa_cuda(*wave, **kw), 2)
+            rec["full_exact_ms"] = cuda_ms(
+                lambda: K.wfa_cuda(*wave, **{**kw, "heur": None}), 2)
+            log(f"[band] same wave at full width (k_pad {k_pad}): "
+                f"AdaptiveBand() {rec['full_heur_ms']:.3f} ms, exact "
+                f"{rec['full_exact_ms']:.3f} ms; band / full-width "
+                f"heuristic {k_ms / rec['full_heur_ms']:.4f}; "
+                f"{rec['equal_full_width']}/{pairs} scores equal the "
+                f"full-width heuristic kernel's")
+        out[name] = rec
+    return out
+
+
+def rescore_all(res, P, plen, T, tlen, pen):
+    """Re-score every CIGAR of ``res`` -> number re-scored (raises on any
+    CIGAR that does not cost its reported score or does not consume both
+    sequences)."""
+    from repro_torch.core.gotoh import score_cigar
+    triple = pen.as_penalties()
+    for i, c in enumerate(res.cigars):
+        if res.scores[i] < 0:
+            raise AssertionError(f"pair {i} unresolved on the CIGAR path")
+        pa, ta = P[i, :plen[i]], T[i, :tlen[i]]
+        cost, ci, cj, ok = score_cigar(c, pa, ta, triple)
+        if not ok or cost != res.scores[i] or ci != plen[i] \
+                or cj != tlen[i]:
+            raise AssertionError(f"CIGAR of pair {i} re-scores to {cost} "
+                                 f"(ok={ok}, consumed {ci}/{cj}), reported "
+                                 f"{res.scores[i]}")
+    return len(res.cigars)
+
+
+def phase_band_path(K, S, dev):
+    """Phase 8: the banded path through the engine, then the yardsticks ->
+    (launches, summary dict)."""
+    import numpy as np
+    from repro_torch.core.engine import AlignmentEngine
+    from repro_torch.core.gotoh import gotoh_score_vec
+    from repro_torch.core.session import run_streamed
+    from repro_torch.data.reads import ReadPairSpec, generate_pairs
+    P, plen, T, tlen = generate_pairs(ReadPairSpec(
+        n_pairs=LONG_PAIRS, read_len=LONG_LEN, edit_frac=LONG_EDIT, seed=0))
+    pen, heur = S.GapAffine(4, 6, 2), S.AdaptiveBand()
+    n64 = BAND_PACKED_PAIRS
+    sub = lambda a: a[:n64]
+    auto = {"band_cap": "auto"}
+    mk = lambda backend, **kw: AlignmentEngine(
+        pen, backend=backend, edit_frac=LONG_EDIT, heuristic=heur,
+        device=dev, **kw)
+    summary = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        wall = time.perf_counter() - t0
+        st = res[2] if isinstance(res, tuple) else res.stats
+        summary[name] = dict(wall_s=wall, t_kernel=st.t_kernel,
+                             t_scatter=st.t_scatter, t_gather=st.t_gather)
+        log(f"[banded] {name}: wall {wall:.2f}s (scatter "
+            f"{st.t_scatter:.3f}s, kernel {st.t_kernel:.3f}s, gather "
+            f"{st.t_gather:.3f}s)")
+        return res
+
+    eng = mk("kernel", backend_opts=auto)
+    eng.align_packed(P, plen, T, tlen)              # warmup
+    K.reset_launches()
+    t0 = time.perf_counter()
+    score = timed("kernel score sync",
+                  lambda: eng.align_packed(P, plen, T, tlen))
+    stream = timed("kernel score stream", lambda: run_streamed(
+        eng, P, plen, T, tlen, submit_pairs=LONG_PAIRS // 4,
+        output="score"))
+    bidir = timed("kernel cigar bidir", lambda: eng.align_packed(
+        P, plen, T, tlen, output="cigar", trace_variant="bidir"))
+    packed = timed("kernel cigar packed", lambda: eng.align_packed(
+        sub(P), sub(plen), sub(T), sub(tlen), output="cigar"))
+    launches = dict(K.LAUNCHES)
+    log(f"[banded] kernel path in {time.perf_counter() - t0:.1f}s; "
+        f"launches {launches}")
+    if not (launches["score_band"] and launches["trace_band"]
+            and launches["meet"]):
+        raise AssertionError(f"the banded path missed a kernel: {launches}")
+    for name, sc in (("streamed", stream[0]), ("bidir", bidir.scores),
+                     ("packed", packed.scores)):
+        ref = score.scores[:len(sc)]
+        if not np.array_equal(sc, ref):
+            raise AssertionError(f"the {name} run's scores differ from the "
+                                 f"blocking score run on "
+                                 f"{int((sc != ref).sum())} pairs")
+    st = bidir.stats
+    log(f"[banded] bidir: n_meet_unmet={st.n_meet_unmet} "
+        f"n_bidir_fallback={st.n_bidir_fallback} "
+        f"peak_trace_bytes={st.peak_trace_bytes:,}")
+    if st.n_meet_unmet or st.n_bidir_fallback:
+        raise AssertionError(f"the banded BiWFA path left meets unused: "
+                             f"n_meet_unmet={st.n_meet_unmet} "
+                             f"n_bidir_fallback={st.n_bidir_fallback}")
+    t0 = time.perf_counter()
+    n_rescored = rescore_all(bidir, P, plen, T, tlen, pen) \
+        + rescore_all(packed, sub(P), sub(plen), sub(T), sub(tlen), pen)
+    log(f"[banded] {n_rescored} CIGARs (bidir {LONG_PAIRS}, packed {n64}) "
+        f"re-score to their costs ({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    triple = pen.as_penalties()
+    for i in range(4):
+        g = gotoh_score_vec(P[i, :plen[i]], T[i, :tlen[i]], triple)
+        if score.scores[i] < g:
+            raise AssertionError(f"pair {i}: banded score "
+                                 f"{score.scores[i]} below Gotoh {g}")
+        log(f"[banded] pair {i}: banded {score.scores[i]} >= Gotoh {g}")
+    log(f"[banded] Gotoh on 4 pairs in {time.perf_counter() - t0:.1f}s")
+
+    # yardsticks: the ring backend (one window per pair), the full-width
+    # heuristic kernel, the exact kernel
+    ring = mk("ring", backend_opts=auto)
+    r_score = timed("ring score sync",
+                    lambda: ring.align_packed(P, plen, T, tlen))
+    r_bidir = timed("ring cigar bidir", lambda: ring.align_packed(
+        P, plen, T, tlen, output="cigar", trace_variant="bidir"))
+    r_packed = timed("ring cigar packed", lambda: ring.align_packed(
+        sub(P), sub(plen), sub(T), sub(tlen), output="cigar"))
+    rescore_all(r_packed, sub(P), sub(plen), sub(T), sub(tlen), pen)
+    if r_bidir.stats.n_bidir_fallback or r_bidir.stats.n_meet_unmet:
+        raise AssertionError("the ring's banded BiWFA path fell back")
+    full = mk("kernel")
+    full.align_packed(P, plen, T, tlen)             # warmup
+    f_score = timed("kernel full-width heuristic score sync",
+                    lambda: full.align_packed(P, plen, T, tlen))
+    exact = AlignmentEngine(pen, backend="kernel", edit_frac=LONG_EDIT,
+                            device=dev)
+    exact.align_packed(P, plen, T, tlen)            # warmup
+    e_score = timed("kernel full-width exact score sync",
+                    lambda: exact.align_packed(P, plen, T, tlen))
+    eq = lambda a, b: int((a == b).sum())
+    summary["counts"] = counts = dict(
+        kernel_band_eq_full=eq(score.scores, f_score.scores),
+        ring_band_eq_full=eq(r_score.scores, f_score.scores),
+        kernel_band_eq_ring_band=eq(score.scores, r_score.scores),
+        ring_bidir_eq_ring_score=eq(r_bidir.scores, r_score.scores),
+        kernel_band_eq_exact=eq(score.scores, e_score.scores),
+        full_eq_exact=eq(f_score.scores, e_score.scores))
+    log(f"[banded] of {LONG_PAIRS} pairs: kernel band = full-width "
+        f"heuristic on {counts['kernel_band_eq_full']}, ring band = "
+        f"full-width heuristic on {counts['ring_band_eq_full']}, kernel "
+        f"band (per block) = ring band (per pair) on "
+        f"{counts['kernel_band_eq_ring_band']}; = exact: kernel band "
+        f"{counts['kernel_band_eq_exact']}, full-width heuristic "
+        f"{counts['full_eq_exact']}; mean cost banded "
+        f"{score.scores.mean():.2f}, exact {e_score.scores.mean():.2f}")
+    summary["streamed_wall_s"] = stream[3]
+    return launches, summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -495,13 +781,29 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f}s ({build.BUILD_INFO['cpu_seconds']:.1f}"
         f"s of compiler CPU: one nvcc after another would take at least "
         f"that)")
-    ptxas = build.BUILD_INFO["log"]
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
-    spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", ptxas)]
-    if regs:
-        log(f"[build] ptxas: {len(regs)} kernels, <= {max(regs)} registers, "
-            f"{sum(1 for b in spills if b)} with spill stores "
-            f"(<= {max(spills, default=0)} bytes)")
+    # ptxas -v: per entry function, its spill stores and registers
+    entries = re.findall(r"Compiling entry function '(\w+)'.*?"
+                         r"(\d+) bytes spill stores.*?Used (\d+) registers",
+                         build.BUILD_INFO["log"], re.S)
+    for label, sel in (("all", lambda n: True),
+                       ("band", lambda n: "wfa_band_kernel" in n)):
+        got = [(int(sp), int(r)) for n, sp, r in entries if sel(n)]
+        if got:
+            log(f"[build] ptxas ({label}): {len(got)} kernels, <= "
+                f"{max(r for _, r in got)} registers, "
+                f"{sum(1 for sp, _ in got if sp)} with spill stores (<= "
+                f"{max(sp for sp, _ in got)} bytes)")
+
+    def short(name):
+        """wfa_kernel<1,1,2,16> from the mangled template name."""
+        m = re.search(r"(wfa_(?:band_|meet_)?kernel)I(.*?)EEv", name)
+        if not m:
+            return name
+        args = re.findall(r"L[bi](\d+)E", m.group(2))
+        return f"{m.group(1)}<{','.join(args)}>"
+    spilled = [f"{short(n)} {sp} B" for n, sp, _ in entries if int(sp)]
+    if spilled:
+        log(f"[build] spill stores: {', '.join(spilled)}")
 
     # 3. kernel vs plain on the card
     P, plen, T, tlen = generate_pairs(ReadPairSpec(
@@ -546,6 +848,19 @@ def main() -> int:
             f"kernel {r['t_kernel']:.2f}s, gather {r['t_gather']:.2f}s) "
             f"on {card}")
 
+    # 7. the band kernel vs plain; 8. the banded path
+    from repro_torch.kernels.wfa import ops as kops
+    t0 = time.perf_counter()
+    band_worst = phase_band_grid(K, S, kops, dev)
+    log(f"[band] grid in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    band = phase_band_root(K, S, kops, dev)
+    log(f"[band] 10 kb phase in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    band_launches, banded = phase_band_path(K, S, dev)
+    log(f"[banded] path and yardsticks in {time.perf_counter() - t0:.1f}s "
+        f"on {card}")
+
     log(f"[time] all phases in {time.perf_counter() - t_start:.1f}s")
 
     # 7. report
@@ -574,6 +889,24 @@ def main() -> int:
         "plain_pairs": root["plain_pairs"],
         "bound_ms": root["bound_ms"], "bound_by": root["bound_by"],
         "library_ms": None})
+    for name, key, err in (("wfa_band_score", "score_band", band_worst[0]),
+                           ("wfa_band_trace", "trace_band", band_worst[1])):
+        r = band[name]
+        rec = {"name": name, "route": "cuda", "source": src,
+               "replaces": "src/repro/kernels/wfa/kernel.py:334",
+               "launches": band_launches[key],
+               "max_abs_err": max(err, r["max_abs_err"]),
+               "ms": r["ms"], "plain_ms": r["plain_ms"],
+               # plain_ms is taken on the first plain_pairs pairs of the
+               # wave; ms_on_plain_inputs is the kernel on those pairs
+               "ms_on_plain_inputs": r["ms_on_plain_inputs"],
+               "plain_pairs": r["plain_pairs"], "pairs": r["pairs"],
+               "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+               "library_ms": None}
+        if "full_heur_ms" in r:
+            rec.update(full_width_heuristic_ms=r["full_heur_ms"],
+                       full_width_exact_ms=r["full_exact_ms"])
+        kernels.append(rec)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -318,6 +318,10 @@ class _Executable:
             fn = spec.variant(output, pen.kind)
             self._dispatch = spec.dispatch
         extra = {}
+        # band_cap="auto" resolves through the heuristic's cap for this
+        # problem's width (exact alignment stays full width); each opt then
+        # goes only to callables that take it, so the meet (no band_cap)
+        # and the ring substitution for stateful children keep working
         opts = dict(opts)
         if opts.get("band_cap") == "auto":
             opts["band_cap"] = (None if heur.exact

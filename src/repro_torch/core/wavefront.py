@@ -49,8 +49,10 @@ Provenance code values (2 bits each, 0 = invalid/never-written):
 (forward and reverse fronts over rolling windows); it serves backends
 without a meet variant and is the oracle of the CUDA meet kernel.
 
-The compacting band (``band_cap``) and the full-history solver are not
-ported yet.
+Both ring solvers take ``band_cap``: the *compacting band* carries the
+fronts at a compact width ``Kc`` in a per-pair window that re-centres on the
+live diagonals each step (:func:`_scores_band`); the packed planes stay full
+width.  The full-history solver is not ported yet.
 """
 from __future__ import annotations
 
@@ -319,20 +321,167 @@ def _pack(bt, s, code):
     bt[s // TRACE_CELLS_PER_WORD] |= torch.bitwise_left_shift(code, sh)
 
 
+# ---------------------------------------------------------------------------
+# Compacting band (WFA-adaptive style).
+#
+# Under a pruning heuristic only a bounded span of diagonals stays live, so
+# the solvers can carry the fronts at a compact width Kc and slide a window
+# along the diagonal axis: each ring row stores, besides its Kc offsets, the
+# absolute K-index of its lane 0 (``off``, one per pair).  Each step the
+# window re-centres on the live span of the previous row (M|I|D), reads of
+# older rows realign by the offset delta, the target test and the ks plane
+# shift by ``off``, and (packed mode) codes scatter back to absolute k
+# before packing, so ``core.cigar`` decodes them unchanged.  Lanes outside
+# the window are pruned as if the heuristic had killed them: when the live
+# span fits Kc the results equal the full-width solver's.
+# ---------------------------------------------------------------------------
+
+
+def _band_recenter(valid, prev_off, Kc, K):
+    """New window offset [B] centred on the live compact lanes ``valid``
+    [B, Kc]; the previous offset where nothing is live."""
+    jidx = torch.arange(Kc, dtype=torch.int32, device=valid.device)[None, :]
+    lo = torch.where(valid, jidx, Kc).amin(dim=1)
+    hi = torch.where(valid, jidx, -1).amax(dim=1)
+    off = (prev_off + torch.div(lo + hi, 2, rounding_mode="floor")
+           - Kc // 2).clamp(0, K - Kc)
+    return torch.where(hi >= lo, off, prev_off).to(torch.int32)
+
+
+def _band_read(ring, off_hist, s, delta, off, W):
+    """Ring row at score ``s - delta`` realigned to the window offsets
+    ``off`` [B] (NEG where the old row held no lane)."""
+    if s < delta:
+        return torch.full_like(ring[0], NEG)
+    row = (s - delta) % W
+    Kc = ring.shape[-1]
+    jidx = torch.arange(Kc, dtype=torch.int32, device=ring.device)[None, :]
+    idx = jidx + (off - off_hist[row])[:, None]
+    ok = (idx >= 0) & (idx < Kc)
+    return torch.where(ok, torch.gather(ring[row], 1,
+                                        idx.clamp(0, Kc - 1).long()), NEG)
+
+
+def _band_reached(M, plen, tlen, k_max, off):
+    """[B] bool: target diagonal reached, at compact index ``k_final -
+    off``."""
+    return _target_reached(M, plen, tlen, k_max - off)
+
+
+def _band_scatter(code, off, K):
+    """Spread a compact [B, Kc] code plane to absolute width [B, K] (every
+    window lies inside ``[0, K)``)."""
+    Kc = code.shape[-1]
+    idx = off[:, None].long() + torch.arange(Kc, device=code.device)
+    return torch.zeros((code.shape[0], K), dtype=code.dtype,
+                       device=code.device).scatter_(1, idx, code)
+
+
+def _scores_band(pattern, text, plen, tlen, model, heur, s_max, k_max, Kc,
+                 packed, begin_state, end_state) -> WFAResult:
+    """Compacting-band ring solver (score only or packed backtrace) behind
+    ``band_cap=`` of :func:`wfa_scores` / :func:`wfa_scores_packed`; the
+    window discipline is the block comment's.  The packed planes stay
+    ``[n_trace_words, B, K]``."""
+    dev = pattern.device
+    B = pattern.shape[0]
+    K = 2 * k_max + 1
+    W = model.window
+    affine = model.kind == "affine"
+    off0s = min(max(k_max - Kc // 2, 0), K - Kc)
+    jidx = torch.arange(Kc, dtype=torch.int32, device=dev)[None, :]
+    ks_of = lambda off: off[:, None] + jidx - k_max
+    new = lambda *shape: torch.full(shape, NEG, dtype=torch.int32,
+                                    device=dev)
+
+    off = torch.full((B,), off0s, dtype=torch.int32, device=dev)
+    seed = new(B, Kc)
+    seed[:, k_max - off0s] = 0
+    M0 = _extend(seed, pattern, text, plen, tlen, ks_of(off))
+    m_ring = new(W, B, Kc)
+    m_ring[0] = M0
+    off_hist = torch.full((W, B), off0s, dtype=torch.int32, device=dev)
+    front0 = M0
+    if affine:
+        i_ring, d_ring = new(W, B, Kc), new(W, B, Kc)
+        if begin_state == "I":
+            i_ring[0] = seed
+        if begin_state == "D":
+            d_ring[0] = seed
+        front0 = {"M": M0, "I": i_ring[0], "D": d_ring[0]}[end_state]
+    score = torch.where(_band_reached(front0, plen, tlen, k_max, off), 0,
+                        -1).to(torch.int32)
+    bts = ()
+    if packed:
+        NW = n_trace_words(s_max)
+        bts = tuple(torch.zeros((NW, B, K), dtype=torch.int32, device=dev)
+                    for _ in range(3 if affine else 1))
+
+    s = 1
+    while s <= s_max and bool((score < 0).any()):
+        prow = (s - 1) % W
+        live = m_ring[prow] > _VALID_THRESH
+        if affine:
+            # I/D fronts can outrun M between prunes: centre on the union
+            live = (live | (i_ring[prow] > _VALID_THRESH)
+                    | (d_ring[prow] > _VALID_THRESH))
+        off = _band_recenter(live, off_hist[prow], Kc, K)
+        ks = ks_of(off)
+        rd = lambda ring: (lambda d: _band_read(ring, off_hist, s, d, off, W))
+        if affine:
+            out = _next_affine(model, rd(m_ring), pattern, text, plen, tlen,
+                               ks, rd(i_ring), rd(d_ring), with_codes=packed)
+            M_new, I_new, D_new = out[:3]
+            end = {"M": M_new, "I": I_new, "D": D_new}[end_state]
+            codes = out[3:]
+        else:
+            out = _next_linear(model, rd(m_ring), pattern, text, plen, tlen,
+                               ks, with_codes=packed)
+            M_new, codes = (out[0], out[1:]) if packed else (out, ())
+            end = M_new
+        reached = _band_reached(end, plen, tlen, k_max, off)
+        score = torch.where((score < 0) & reached, s, score).to(torch.int32)
+        keep = keep_mask(heur, M_new, plen[:, None], tlen[:, None], ks)
+        row = s % W
+        if affine:
+            M_new, I_new, D_new = _pruned(keep, M_new, I_new, D_new)
+            i_ring[row] = I_new
+            d_ring[row] = D_new
+        else:
+            M_new = _pruned(keep, M_new)
+        m_ring[row] = M_new
+        off_hist[row] = off
+        for bt, code in zip(bts, codes):
+            _pack(bt, s, _band_scatter(code, off, K))
+        s += 1
+    bts = bts + (None,) * (3 - len(bts)) if packed else (None,) * 3
+    return WFAResult(score, None, None, None, s, *bts)
+
+
+def _band_width(band_cap, K):
+    """Validated compact width, or None to run full width."""
+    if band_cap is None:
+        return None
+    Kc = max(int(band_cap), 9)     # floor keeps shifts and seed well-defined
+    return Kc if Kc < K else None
+
+
 def _solve(pattern, text, plen, tlen, pen, s_max, k_max, heur, band_cap,
            packed, begin_state="M", end_state="M",
            device=None) -> WFAResult:
     """Shared ring solver behind :func:`wfa_scores` (score only) and
-    :func:`wfa_scores_packed` (plus the packed backtrace)."""
+    :func:`wfa_scores_packed` (plus the packed backtrace); ``band_cap``
+    below ``K`` runs the compacting band."""
     model, heur = _resolve(pen, heur)
     _check_states(model, begin_state, end_state)
-    if band_cap is not None:
-        raise NotImplementedError(
-            "the compacting band (band_cap) is not ported yet")
     pattern, text, plen, tlen = _prep(pattern, text, plen, tlen, device)
     dev = pattern.device
     B = pattern.shape[0]
     K = 2 * k_max + 1
+    Kc = _band_width(band_cap, K)
+    if Kc is not None:
+        return _scores_band(pattern, text, plen, tlen, model, heur, s_max,
+                            k_max, Kc, packed, begin_state, end_state)
     W = model.window
     affine = model.kind == "affine"
     ks = torch.arange(K, dtype=torch.int32, device=dev) - k_max
@@ -402,6 +551,13 @@ def wfa_scores(pattern, text, plen, tlen, *, pen, s_max: int, k_max: int,
     Rings of ``[window, B, K]`` (3 for affine, 1 for linear) with
     ``window = max(x, o+e) + 1``; the whole batch stops at the first step
     where every pair has reached its target (or at ``s_max``).
+
+    ``band_cap`` switches on the compacting band: the fronts are carried at
+    width ``max(band_cap, 9)`` (full width when that is not below ``K``) in
+    a per-pair window that re-centres on the live diagonals each step.  It
+    equals full width whenever the live span fits the window; otherwise the
+    truncation is extra heuristic pruning, so pass it with a non-exact
+    ``heur``.
     """
     return _solve(pattern, text, plen, tlen, pen, s_max, k_max, heur,
                   band_cap, packed=False, device=device)
@@ -416,7 +572,9 @@ def wfa_scores_packed(pattern, text, plen, tlen, *, pen, s_max: int,
     models, one for linear) that ``core.cigar`` decodes into exact CIGARs.
 
     ``begin_state``/``end_state`` (affine only) seed an already-open gap at
-    the origin / end the alignment inside a gap run.
+    the origin / end the alignment inside a gap run.  ``band_cap`` as in
+    :func:`wfa_scores`; the planes stay full width (codes scatter to
+    absolute k), so ``core.cigar`` decodes band traces unchanged.
     """
     return _solve(pattern, text, plen, tlen, pen, s_max, k_max, heur,
                   band_cap, packed=True, begin_state=begin_state,

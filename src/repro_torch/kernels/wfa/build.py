@@ -110,6 +110,10 @@ def load() -> ctypes.CDLL:
             lib.wfa_launch.restype = I
             lib.wfa_scratch_ints.argtypes = [I] * 5
             lib.wfa_scratch_ints.restype = ctypes.c_longlong
+            lib.wfa_band_launch.argtypes = [P] * 10 + [I] * 16 + [P]
+            lib.wfa_band_launch.restype = I
+            lib.wfa_band_scratch_ints.argtypes = [I] * 5
+            lib.wfa_band_scratch_ints.restype = ctypes.c_longlong
             lib.wfa_error_string.argtypes = [I]
             lib.wfa_error_string.restype = ctypes.c_char_p
             lib.wfa_max_trace_cells.argtypes = []

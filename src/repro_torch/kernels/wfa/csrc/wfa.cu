@@ -2,10 +2,11 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/wfa/kernel.py::wfa_pallas
 // (body _make_kernel), its score variant (trace=False) and its packed-trace
-// variant (trace=True), without the compacting band.  Same inputs, same
-// outputs, bit for bit: score [B,1] (-1 over s_max), steps [B,1] (the
-// block's exit step) and, with TRACE, the [NW, B, k_pad] int32 words of
-// 2-bit provenance codes (16 score steps per word).
+// variant (trace=True), at full width (wfa_kernel) and on the compacting
+// band, band_cap set (wfa_band_kernel, below).  Same inputs, same outputs,
+// bit for bit: score [B,1] (-1 over s_max), steps [B,1] (the block's exit
+// step) and, with TRACE, the [NW, B, k_pad] int32 words of 2-bit
+// provenance codes (16 score steps per word).
 //
 // Design.  One CTA per block of BP pairs, threads over the BP * k_pad
 // (pair, lane) cells; all k_pad lanes run, centred at k_pad/2, so the trace
@@ -67,19 +68,32 @@ struct Params {
 
 size_t head_bytes(int BP) { return (size_t)HEAD_ARRAYS * BP * sizeof(int); }
 
-size_t ring_bytes(int BP, int k_pad, int W, int affine) {
-  return (size_t)(affine ? 3 : 1) * W * BP * k_pad * sizeof(int);
+// The band kernel's head adds the [W] row offsets and the [2][2] live spans.
+size_t band_head_bytes(int BP, int W) {
+  return head_bytes(BP) + (size_t)(W + 4) * sizeof(int);
 }
 
-// Whether the rings fit in the shared memory one block may opt into on the
-// current device (227 KB on Hopper); else they go to a global scratch.
-bool rings_in_smem(int BP, int k_pad, int W, int affine) {
+size_t ring_bytes(int BP, int width, int W, int affine) {
+  return (size_t)(affine ? 3 : 1) * W * BP * width * sizeof(int);
+}
+
+// Whether `bytes` fit in the shared memory one block may opt into on the
+// current device (227 KB on Hopper); else the rings go to a global scratch.
+bool fits_smem(size_t bytes) {
   int dev = 0, optin = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              dev) != cudaSuccess)
     return false;
-  return head_bytes(BP) + ring_bytes(BP, k_pad, W, affine) <= (size_t)optin;
+  return bytes <= (size_t)optin;
+}
+
+bool rings_in_smem(int BP, int k_pad, int W, int affine) {
+  return fits_smem(head_bytes(BP) + ring_bytes(BP, k_pad, W, affine));
+}
+
+bool band_rings_in_smem(int BP, int kc, int W, int affine) {
+  return fits_smem(band_head_bytes(BP, W) + ring_bytes(BP, kc, W, affine));
 }
 
 __device__ __forceinline__ int extend(int M, int k, const int* __restrict__ prow,
@@ -92,6 +106,60 @@ __device__ __forceinline__ int extend(int M, int k, const int* __restrict__ prow
     ++v;
   }
   return M;
+}
+
+// One cell's step from its ring reads (rows s-x, s-(o+e), s-e at lanes k,
+// k-1, k+1): the bounded I/D/X candidates, M after the extension and the
+// 2-bit codes of the pre-prune fronts (tie-break X, I, D; extend over
+// open).  A linear model passes its M_{s-e} neighbours as i_open / d_open
+// and NEG as i_ext / d_ext.
+struct Cell {
+  int M, I, D;
+  uint32_t cm, ci, cd;
+};
+
+template <bool AFFINE>
+__device__ __forceinline__ Cell step_cell(int m_x, int i_open, int i_ext,
+                                          int d_open, int d_ext, int k, int pl,
+                                          int tl, const int* __restrict__ prow,
+                                          const int* __restrict__ trow) {
+  const int i_src = max(i_open, i_ext), d_src = max(d_open, d_ext);
+  Cell r;
+  r.I = (i_src > THRESH && i_src + 1 <= tl) ? i_src + 1 : NEG;
+  r.D = (d_src > THRESH && d_src - k <= pl) ? d_src : NEG;
+  const int X = (m_x > THRESH && m_x + 1 <= tl && m_x + 1 - k <= pl)
+                    ? m_x + 1 : NEG;
+  const int Mpre = max(max(X, r.I), r.D);
+  r.M = extend(Mpre, k, prow, trow, pl, tl);
+  r.cm = Mpre > THRESH ? (Mpre == X ? 1u : (Mpre == r.I ? 2u : 3u)) : 0u;
+  r.ci = AFFINE && r.I > THRESH ? (i_ext >= i_open ? 2u : 1u) : 0u;
+  r.cd = AFFINE && r.D > THRESH ? (d_ext >= d_open ? 2u : 1u) : 0u;
+  return r;
+}
+
+// Phase A: a live cell feeds its pair's heuristic reductions (AdaptiveBand:
+// least remaining distance and live lanes; ZDrop: furthest antidiagonal).
+template <int HEUR>
+__device__ __forceinline__ void heur_reduce(int* red, int* live, int M, int k,
+                                            int pl, int tl) {
+  if (HEUR == HEUR_ADAPTIVE) {
+    atomicMin(red, max(tl - M, pl - (M - k)));
+    atomicAdd(live, 1);
+  } else if (HEUR == HEUR_ZDROP) {
+    atomicMax(red, 2 * M - k);
+  }
+}
+
+// Phase B: whether the heuristic keeps a cell whose M is `M` (keep_mask).
+template <int HEUR>
+__device__ __forceinline__ bool heur_keep(int M, int k, int pl, int tl,
+                                          int red, int live, int hp1,
+                                          int hp2) {
+  if (M <= THRESH) return false;
+  if (HEUR == HEUR_ADAPTIVE)
+    return live <= hp1 || max(tl - M, pl - (M - k)) - red <= hp2;
+  if (HEUR == HEUR_ZDROP) return red - (2 * M - k) <= hp1;
+  return true;
 }
 
 template <bool AFFINE, bool TRACE, int HEUR, int CPT>
@@ -193,51 +261,25 @@ __global__ void __launch_bounds__(MAX_THREADS)
         const int b = c / KP, j = c - b * KP, k = j - kc;
         const int pair = pair0 + b;
         const int pl = s_plen[b], tl = s_tlen[b];
-        const int m_x = rd(m_ring, p.x, b, j);
-        int i_open, i_ext, d_open, d_ext, i_src, d_src;
-        if (AFFINE) {
-          const int oe = p.o + p.e;
-          i_open = rd(m_ring, oe, b, j - 1);
-          i_ext = rd(i_ring, p.e, b, j - 1);
-          d_open = rd(m_ring, oe, b, j + 1);
-          d_ext = rd(d_ring, p.e, b, j + 1);
-          i_src = max(i_open, i_ext);
-          d_src = max(d_open, d_ext);
-        } else {
-          i_src = rd(m_ring, p.e, b, j - 1);
-          d_src = rd(m_ring, p.e, b, j + 1);
-        }
-        const int I = (i_src > THRESH && i_src + 1 <= tl) ? i_src + 1 : NEG;
-        const int D = (d_src > THRESH && d_src - k <= pl) ? d_src : NEG;
-        const int X = (m_x > THRESH && m_x + 1 <= tl && m_x + 1 - k <= pl)
-                          ? m_x + 1 : NEG;
-        const int Mpre = max(max(X, I), D);
-        const int M = extend(Mpre, k, p.pattern + (size_t)pair * p.Lp,
-                             p.text + (size_t)pair * p.Lt, pl, tl);
+        const int oe = AFFINE ? p.o + p.e : p.e;
+        const Cell st = step_cell<AFFINE>(
+            rd(m_ring, p.x, b, j), rd(m_ring, oe, b, j - 1),
+            AFFINE ? rd(i_ring, p.e, b, j - 1) : NEG, rd(m_ring, oe, b, j + 1),
+            AFFINE ? rd(d_ring, p.e, b, j + 1) : NEG, k, pl, tl,
+            p.pattern + (size_t)pair * p.Lp, p.text + (size_t)pair * p.Lt);
         if (TRACE) {
-          const uint32_t cm =
-              Mpre > THRESH ? (Mpre == X ? 1u : (Mpre == I ? 2u : 3u)) : 0u;
-          wm[TRACE ? q : 0] |= cm << sh;
-          if (AFFINE) {
-            const uint32_t ci = I > THRESH ? (i_ext >= i_open ? 2u : 1u) : 0u;
-            const uint32_t cd = D > THRESH ? (d_ext >= d_open ? 2u : 1u) : 0u;
-            wi[TRACE ? q : 0] |= ci << sh;
-            wd[TRACE ? q : 0] |= cd << sh;
-          }
+          wm[TRACE ? q : 0] |= st.cm << sh;
+          wi[TRACE ? q : 0] |= st.ci << sh;
+          wd[TRACE ? q : 0] |= st.cd << sh;
         }
-        m_ring[row + c] = M;
+        m_ring[row + c] = st.M;
         if (AFFINE) {
-          i_ring[row + c] = I;
-          d_ring[row + c] = D;
+          i_ring[row + c] = st.I;
+          d_ring[row + c] = st.D;
         }
-        if (M > THRESH) {
-          if (k == tl - pl && M >= tl) s_reach[b] = 1;
-          if (HEUR == HEUR_ADAPTIVE) {
-            atomicMin(&s_red[b], max(tl - M, pl - (M - k)));
-            atomicAdd(&s_live[b], 1);
-          } else if (HEUR == HEUR_ZDROP) {
-            atomicMax(&s_red[b], 2 * M - k);
-          }
+        if (st.M > THRESH) {
+          if (k == tl - pl && st.M >= tl) s_reach[b] = 1;
+          heur_reduce<HEUR>(&s_red[b], &s_live[b], st.M, k, pl, tl);
         }
       }
     }
@@ -248,15 +290,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
         const int c = tid + q * nthr;
         if (c >= cells) break;
         const int b = c / KP, k = c - b * KP - kc;
-        const int M = m_ring[row + c];
-        bool keep = M > THRESH;
-        if (keep && HEUR == HEUR_ADAPTIVE) {
-          const int d = max(s_tlen[b] - M, s_plen[b] - (M - k));
-          keep = s_live[b] <= p.hp1 || d - s_red[b] <= p.hp2;
-        } else if (keep && HEUR == HEUR_ZDROP) {
-          keep = s_red[b] - (2 * M - k) <= p.hp1;
-        }
-        if (!keep) {
+        if (!heur_keep<HEUR>(m_ring[row + c], k, s_plen[b], s_tlen[b],
+                             s_red[b], s_live[b], p.hp1, p.hp2)) {
           m_ring[row + c] = NEG;
           if (AFFINE) {
             i_ring[row + c] = NEG;
@@ -280,6 +315,225 @@ __global__ void __launch_bounds__(MAX_THREADS)
   // the last step's partial word (steps since the last flush)
   if (TRACE && s - 1 >= 1 && (s - 1) % CELLS_PER_WORD != CELLS_PER_WORD - 1)
     flush((s - 1) / CELLS_PER_WORD);
+  if (tid < BP) {
+    p.score[pair0 + tid] = s_score[tid];
+    p.steps[pair0 + tid] = s;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The compacting band (TPU kernel 3: wfa_pallas with band_cap).
+//
+// Rings are KC lanes wide ([W, BP, KC]) and sit in a window that slides
+// along the k_pad diagonals: s_off[r] is the absolute lane of ring row r's
+// lane 0, one offset per block as on the TPU.  Threads run over the BP * KC
+// compact cells (KC = 128 for AdaptiveBand(), 256 for ZDrop(): the rings of
+// the 10 kb long-read pass fit shared memory).  Each step:
+//   - the offset re-centres on the live lanes (M|I|D) of row (s-1)%W: their
+//     lowest and highest compact lane, reduced in phase B of the step before
+//     (warp reductions, then shared-memory atomics into one of two span
+//     slots chosen by the step's parity, so a slot is reset a step before it
+//     is filled again);
+//   - reads of an older row r take lane j + (off - s_off[r]), NEG outside
+//     [0, KC); the +-1 diagonal neighbours are read inside the compact width
+//     first, so the window's edge lanes read NEG, as the TPU kernel's shifts
+//     do;
+//   - the target test, the extension and the heuristics use the absolute
+//     diagonal k = j + off - k_pad/2.
+// Trace codes cannot stay in a register word as in wfa_kernel: a cell's
+// absolute lane changes whenever the window moves inside a 16-step word.
+// Each nonzero code is ORed straight into its word at lane off + j in global
+// memory (the wrapper zeroes the planes).  Within a step each absolute lane
+// has one writer; the block barriers order the steps.
+// What bounds it: as wfa_kernel, latency-bound integer code, now with KC
+// instead of k_pad cells per pair (1,024 instead of 39,936 per block at the
+// 10 kb shape).
+template <bool AFFINE, bool TRACE, int HEUR>
+__global__ void __launch_bounds__(MAX_THREADS)
+    wfa_band_kernel(const Params p, const int KC) {
+  extern __shared__ int smem[];
+  const int BP = p.BP, KP = p.k_pad, W = p.W;
+  const int cells = BP * KC;
+  const int kc_full = KP / 2;
+  const int pair0 = blockIdx.x * BP;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int ncell = (cells + nthr - 1) / nthr;
+
+  int* s_score = smem;
+  int* s_reach = smem + BP;
+  int* s_red = smem + 2 * BP;
+  int* s_live = smem + 3 * BP;
+  int* s_plen = smem + 4 * BP;
+  int* s_tlen = smem + 5 * BP;
+  int* s_off = smem + HEAD_ARRAYS * BP;   // [W] absolute lane of lane 0
+  int* s_span = s_off + W;                // [2][lo, hi] live compact lanes
+  const int n_rings = AFFINE ? 3 : 1;
+  const size_t plane = (size_t)W * cells;
+  int* ring = p.ring_in_smem
+                  ? s_span + 4
+                  : p.scratch + (size_t)blockIdx.x * n_rings * plane;
+  int* m_ring = ring;
+  int* i_ring = ring + plane;
+  int* d_ring = ring + 2 * plane;
+  const int red_init = HEUR == HEUR_ZDROP ? -BIG : BIG;
+  const int off0 = min(max(kc_full - KC / 2, 0), KP - KC);
+
+  if (tid < BP) {
+    s_plen[tid] = min(p.plen[pair0 + tid], p.Lp);
+    s_tlen[tid] = min(p.tlen[pair0 + tid], p.Lt);
+    s_reach[tid] = 0;
+    s_red[tid] = red_init;
+    s_live[tid] = 0;
+  }
+  for (int r = tid; r < W; r += nthr) s_off[r] = off0;
+  if (tid < 4) s_span[tid] = (tid & 1) ? -1 : KC;
+  __syncthreads();
+
+  // One warp-reduced contribution of this thread's live lanes [lo, hi].
+  auto add_span = [&](int* span, int lo, int hi) {
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    if ((tid & 31) == 0 && hi >= 0) {
+      atomicMin(span, lo);
+      atomicMax(span + 1, hi);
+    }
+  };
+
+  // s = 0: M_0[k=0] = LCP(p, t); I/D invalid.  Its live span seeds step 1.
+  {
+    int lo = KC, hi = -1;
+    for (int q = 0; q < ncell; ++q) {
+      const int c = tid + q * nthr;
+      if (c < cells) {
+        const int b = c / KC, j = c - b * KC, k = j + off0 - kc_full;
+        const int pair = pair0 + b;
+        const int pl = s_plen[b], tl = s_tlen[b];
+        const int M = extend(k == 0 ? 0 : NEG, k,
+                             p.pattern + (size_t)pair * p.Lp,
+                             p.text + (size_t)pair * p.Lt, pl, tl);
+        m_ring[c] = M;
+        if (AFFINE) {
+          i_ring[c] = NEG;
+          d_ring[c] = NEG;
+        }
+        if (M > THRESH) {
+          if (k == tl - pl && M >= tl) s_reach[b] = 1;
+          lo = min(lo, j);
+          hi = max(hi, j);
+        }
+      }
+    }
+    add_span(s_span + 2, lo, hi);
+  }
+  __syncthreads();
+  if (tid < BP) {
+    s_score[tid] = s_reach[tid] ? 0 : -1;
+    s_reach[tid] = 0;
+  }
+  int s = 1;
+  bool cont = __syncthreads_or(tid < BP && s_score[tid] < 0) && s <= p.s_max;
+
+  while (cont) {
+    const int par = s & 1;
+    const int lo = s_span[2 * par], hi = s_span[2 * par + 1];
+    const int poff = s_off[(s - 1) % W];
+    const int off =
+        hi >= lo ? min(max(poff + (lo + hi) / 2 - KC / 2, 0), KP - KC) : poff;
+    if (tid == 0) {
+      // row s%W is not read in step s; the other span slot was last read at
+      // the top of step s-1
+      s_off[s % W] = off;
+      s_span[2 * (par ^ 1)] = KC;
+      s_span[2 * (par ^ 1) + 1] = -1;
+    }
+    // ring row s-delta realigned to this step's window, lane jj
+    auto rd = [&](const int* rg, int delta, int b, int jj) -> int {
+      if (s < delta || jj < 0 || jj >= KC) return NEG;
+      const int r = (s - delta) % W;
+      const int idx = jj + off - s_off[r];
+      if (idx < 0 || idx >= KC) return NEG;
+      return rg[(size_t)r * cells + b * KC + idx];
+    };
+    const size_t row = (size_t)(s % W) * cells;
+    const int sh = 2 * (s % CELLS_PER_WORD);
+    const size_t word = (size_t)(s / CELLS_PER_WORD);
+    // ---- phase A: candidates, extension, codes, unpruned store ----------
+    for (int q = 0; q < ncell; ++q) {
+      const int c = tid + q * nthr;
+      if (c < cells) {
+        const int b = c / KC, j = c - b * KC, k = j + off - kc_full;
+        const int pair = pair0 + b;
+        const int pl = s_plen[b], tl = s_tlen[b];
+        const int oe = AFFINE ? p.o + p.e : p.e;
+        const Cell st = step_cell<AFFINE>(
+            rd(m_ring, p.x, b, j), rd(m_ring, oe, b, j - 1),
+            AFFINE ? rd(i_ring, p.e, b, j - 1) : NEG, rd(m_ring, oe, b, j + 1),
+            AFFINE ? rd(d_ring, p.e, b, j + 1) : NEG, k, pl, tl,
+            p.pattern + (size_t)pair * p.Lp, p.text + (size_t)pair * p.Lt);
+        if (TRACE) {
+          // ci and cd are 0 for linear models, whose i_bt / d_bt are null
+          const size_t at = (word * p.B + pair) * KP + off + j;
+          if (st.cm) reinterpret_cast<uint32_t*>(p.m_bt)[at] |= st.cm << sh;
+          if (st.ci) reinterpret_cast<uint32_t*>(p.i_bt)[at] |= st.ci << sh;
+          if (st.cd) reinterpret_cast<uint32_t*>(p.d_bt)[at] |= st.cd << sh;
+        }
+        m_ring[row + c] = st.M;
+        if (AFFINE) {
+          i_ring[row + c] = st.I;
+          d_ring[row + c] = st.D;
+        }
+        if (st.M > THRESH) {
+          if (k == tl - pl && st.M >= tl) s_reach[b] = 1;
+          heur_reduce<HEUR>(&s_red[b], &s_live[b], st.M, k, pl, tl);
+        }
+      }
+    }
+    __syncthreads();
+    // ---- phase B: prune, the next step's live span, settle scores -------
+    {
+      int nlo = KC, nhi = -1;
+      for (int q = 0; q < ncell; ++q) {
+        const int c = tid + q * nthr;
+        if (c < cells) {
+          const int b = c / KC, j = c - b * KC, k = j + off - kc_full;
+          const int M = m_ring[row + c];
+          bool live;
+          if (HEUR != HEUR_NONE) {
+            // M's mask prunes I and D too: a kept lane has a live M
+            const bool keep = heur_keep<HEUR>(M, k, s_plen[b], s_tlen[b],
+                                              s_red[b], s_live[b], p.hp1,
+                                              p.hp2);
+            if (!keep) {
+              m_ring[row + c] = NEG;
+              if (AFFINE) {
+                i_ring[row + c] = NEG;
+                d_ring[row + c] = NEG;
+              }
+            }
+            live = keep;
+          } else {
+            live = M > THRESH ||
+                   (AFFINE && (i_ring[row + c] > THRESH ||
+                               d_ring[row + c] > THRESH));
+          }
+          if (live) {
+            nlo = min(nlo, j);
+            nhi = max(nhi, j);
+          }
+        }
+      }
+      add_span(s_span + 2 * (par ^ 1), nlo, nhi);
+    }
+    if (tid < BP && s_score[tid] < 0 && s_reach[tid]) s_score[tid] = s;
+    __syncthreads();
+    if (tid < BP) {
+      s_reach[tid] = 0;
+      s_red[tid] = red_init;
+      s_live[tid] = 0;
+    }
+    ++s;
+    cont = __syncthreads_or(tid < BP && s_score[tid] < 0) && s <= p.s_max;
+  }
   if (tid < BP) {
     p.score[pair0 + tid] = s_score[tid];
     p.steps[pair0 + tid] = s;
@@ -322,6 +576,29 @@ cudaError_t by_heur(const Params& p, int heur, int cpt, int threads,
     case HEUR_ADAPTIVE:
       return by_cpt<A, T, HEUR_ADAPTIVE>(p, cpt, threads, smem, stream);
     case HEUR_ZDROP: return by_cpt<A, T, HEUR_ZDROP>(p, cpt, threads, smem, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool A, bool T, int H>
+cudaError_t launch_band(const Params& p, int kc, int threads, size_t smem,
+                        cudaStream_t stream) {
+  auto kern = wfa_band_kernel<A, T, H>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<p.B / p.BP, threads, smem, stream>>>(p, kc);
+  return cudaGetLastError();
+}
+
+template <bool A, bool T>
+cudaError_t band_by_heur(const Params& p, int heur, int kc, int threads,
+                         size_t smem, cudaStream_t stream) {
+  switch (heur) {
+    case HEUR_NONE: return launch_band<A, T, HEUR_NONE>(p, kc, threads, smem, stream);
+    case HEUR_ADAPTIVE:
+      return launch_band<A, T, HEUR_ADAPTIVE>(p, kc, threads, smem, stream);
+    case HEUR_ZDROP: return launch_band<A, T, HEUR_ZDROP>(p, kc, threads, smem, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -374,6 +651,44 @@ int wfa_launch(const int* pattern, const int* text, const int* plen,
                  : by_heur<true, false>(p, heur, cpt, threads, smem, st);
   return trace ? by_heur<false, true>(p, heur, cpt, threads, smem, st)
                : by_heur<false, false>(p, heur, cpt, threads, smem, st);
+}
+
+// Ints of global scratch wfa_band_launch needs for the kc-wide rings of B
+// pairs: 0 when they fit in shared memory.
+long long wfa_band_scratch_ints(int B, int BP, int kc, int W, int affine) {
+  if (BP < 1 || band_rings_in_smem(BP, kc, W, affine)) return 0;
+  return (long long)(B / BP) *
+         (long long)(ring_bytes(BP, kc, W, affine) / sizeof(int));
+}
+
+// Launch one batched WFA on the compacting band of kc lanes (2 <= kc <=
+// k_pad); arguments and return as wfa_launch.
+int wfa_band_launch(const int* pattern, const int* text, const int* plen,
+                    const int* tlen, int* score, int* steps, int* m_bt,
+                    int* i_bt, int* d_bt, int* scratch, int B, int Lp, int Lt,
+                    int BP, int k_pad, int kc, int s_max, int x, int o, int e,
+                    int W, int affine, int trace, int heur, int hp1, int hp2,
+                    void* stream) {
+  if (BP < 1 || B % BP != 0 || kc < 2 || kc > k_pad || W < 2)
+    return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  const int cells = BP * kc;
+  int threads = cells < MAX_THREADS ? cells : MAX_THREADS;
+  threads = ((threads + 31) / 32) * 32;
+  const int ring_in_smem = band_rings_in_smem(BP, kc, W, affine);
+  size_t smem = band_head_bytes(BP, W);
+  if (ring_in_smem)
+    smem += ring_bytes(BP, kc, W, affine);
+  else if (scratch == nullptr)
+    return cudaErrorInvalidValue;
+  Params p{pattern, text, plen, tlen, score, steps, m_bt, i_bt, d_bt, scratch,
+           B, Lp, Lt, BP, k_pad, s_max, x, o, e, W, hp1, hp2, ring_in_smem};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (affine)
+    return trace ? band_by_heur<true, true>(p, heur, kc, threads, smem, st)
+                 : band_by_heur<true, false>(p, heur, kc, threads, smem, st);
+  return trace ? band_by_heur<false, true>(p, heur, kc, threads, smem, st)
+               : band_by_heur<false, false>(p, heur, kc, threads, smem, st);
 }
 
 const char* wfa_error_string(int code) {

@@ -2,14 +2,16 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/wfa/kernel.py::wfa_pallas``
 (body ``_make_kernel``) in its score (``trace=False``) and packed-trace
-(``trace=True``) variants, and ``wfa_meet_pallas`` (body
-``_make_meet_kernel``), the BiWFA meet search; the compacting band
-(``band_cap``) is not ported yet.  Both versions here compute exactly what
-the Pallas kernels compute:
+(``trace=True``) variants, each at full width or on the compacting band
+(``band_cap``), and ``wfa_meet_pallas`` (body ``_make_meet_kernel``), the
+BiWFA meet search.  Both versions here compute exactly what the Pallas
+kernels compute:
 
 * pairs in blocks of ``block_pairs``; each block runs its own score loop
   and exits once all its pairs are resolved (or ``s`` passes ``s_max``);
-* ``k_pad`` diagonal lanes per pair, centred at ``k_pad // 2``;
+* ``k_pad`` diagonal lanes per pair, centred at ``k_pad // 2``, or, with
+  ``band_cap < k_pad``, ``band_cap`` lanes in a window per block that
+  slides along those ``k_pad`` (the compacting band);
 * rings of depth ``window`` (three for affine models, one for linear);
 * outputs ``score [B, 1]`` (-1 over ``s_max``), ``steps [B, 1]`` (the
   block's exit step) and, with ``trace``, ``[n_words, B, k_pad]`` int32
@@ -32,9 +34,11 @@ from repro_torch.core import scoring
 from repro_torch.core import wavefront as wf
 from repro_torch.core.scoring import AdaptiveBand, ZDrop
 
-# Kernel launches per variant ("score" / "trace" / "meet"); the plain
+# Kernel launches per variant ("score" / "trace" at full width,
+# "score_band" / "trace_band" on the compacting band, "meet"); the plain
 # versions do not count.
-LAUNCHES = {"score": 0, "trace": 0, "meet": 0}
+LAUNCHES = {"score": 0, "trace": 0, "score_band": 0, "trace_band": 0,
+            "meet": 0}
 
 
 def reset_launches() -> None:
@@ -63,12 +67,19 @@ def _check(pattern, text, plen, tlen, block_pairs, k_pad):
 
 
 def wfa_plain(pattern, text, plen, tlen, *, pen, s_max: int, k_pad: int,
-              block_pairs: int, trace: bool = False, heur=None):
+              block_pairs: int, trace: bool = False, heur=None,
+              band_cap=None):
     """Plain PyTorch version of the kernel (any device).
 
     The whole batch steps together while any block is live; a block that
     has exited stops contributing trace codes, and its ``steps`` is the
     step at which it exited — what the per-block loop of the kernel gives.
+
+    ``band_cap`` below ``k_pad`` runs the compacting band as the TPU kernel
+    does: ``band_cap``-wide rings in a window per *block* (the union of its
+    pairs' live lanes, M|I|D for affine models), offset ``off0`` at the
+    centre, re-centred each step on the previous row, older rows realigned
+    by the offset delta, codes scattered to absolute k.
     """
     model = scoring.as_model(pen)
     heur = scoring.as_heuristic(heur)
@@ -78,21 +89,27 @@ def wfa_plain(pattern, text, plen, tlen, *, pen, s_max: int, k_pad: int,
     nblk = B // block_pairs
     W = model.window
     affine = model.kind == "affine"
-    kc = k_pad // 2
+    band = band_cap is not None and band_cap < k_pad
+    Kc = int(band_cap) if band else k_pad
+    kc = k_pad // 2                      # absolute diagonal centre
+    off0 = min(max(kc - Kc // 2, 0), k_pad - Kc)
     pl = plen[:, 0]
     tl = tlen[:, 0]
-    ks = torch.arange(k_pad, dtype=torch.int32, device=dev) - kc
+    jidx = torch.arange(Kc, dtype=torch.int32, device=dev)[None, :]
+    rows = lambda v: v.repeat_interleave(block_pairs)    # [nblk] -> [B]
     new = lambda *shape: torch.full(shape, wf.NEG, dtype=torch.int32,
                                     device=dev)
 
-    seed = new(B, k_pad)
-    seed[:, kc] = 0
-    M0 = wf._extend(seed, pattern, text, pl, tl, ks)
-    m_ring = new(W, B, k_pad)
+    off = torch.full((B,), off0, dtype=torch.int32, device=dev)
+    off_hist = torch.full((W, B), off0, dtype=torch.int32, device=dev)
+    ks = jidx + (off - kc)[:, None]
+    M0 = wf._extend(torch.where(ks == 0, 0, wf.NEG).to(torch.int32),
+                    pattern, text, pl, tl, ks)
+    m_ring = new(W, B, Kc)
     m_ring[0] = M0
     if affine:
-        i_ring, d_ring = new(W, B, k_pad), new(W, B, k_pad)
-    score = torch.where(wf._target_reached(M0, pl, tl, kc), 0,
+        i_ring, d_ring = new(W, B, Kc), new(W, B, Kc)
+    score = torch.where(wf._band_reached(M0, pl, tl, kc, off), 0,
                         -1).to(torch.int32)
     bts = ()
     if trace:
@@ -105,11 +122,28 @@ def wfa_plain(pattern, text, plen, tlen, *, pen, s_max: int, k_pad: int,
         open_ = (score < 0).view(nblk, block_pairs).any(dim=1)
         return open_ & (s <= s_max)
 
+    def recenter(s):
+        prow = (s - 1) % W
+        live = m_ring[prow] > wf._VALID_THRESH
+        if affine:
+            # I/D fronts can outrun M between prunes: use the union
+            live = (live | (i_ring[prow] > wf._VALID_THRESH)
+                    | (d_ring[prow] > wf._VALID_THRESH))
+        poff = off_hist[prow].view(nblk, block_pairs)[:, 0]
+        return rows(wf._band_recenter(
+            live.view(nblk, block_pairs, Kc).any(dim=1), poff, Kc, k_pad))
+
     steps = torch.ones(nblk, dtype=torch.int32, device=dev)
     live = block_live(1)
     s = 1
     while bool(live.any()):
-        read = lambda ring: wf._ring_reader(ring, s, W)
+        if band:
+            off = recenter(s)
+            ks = jidx + (off - kc)[:, None]
+            read = lambda ring: (lambda d: wf._band_read(ring, off_hist, s,
+                                                         d, off, W))
+        else:
+            read = lambda ring: wf._ring_reader(ring, s, W)
         if affine:
             out = wf._next_affine(model, read(m_ring), pattern, text, pl, tl,
                                   ks, read(i_ring), read(d_ring),
@@ -120,25 +154,28 @@ def wfa_plain(pattern, text, plen, tlen, *, pen, s_max: int, k_pad: int,
             out = wf._next_linear(model, read(m_ring), pattern, text, pl, tl,
                                   ks, with_codes=trace)
             M_new, codes = (out[0], out[1:]) if trace else (out, ())
-        reached = wf._target_reached(M_new, pl, tl, kc)
+        reached = wf._band_reached(M_new, pl, tl, kc, off)
         score = torch.where((score < 0) & reached, s, score).to(torch.int32)
+        keep = wf.keep_mask(heur, M_new, pl[:, None], tl[:, None], ks)
         row = s % W
         if affine:
-            M_new, I_new, D_new = wf._prune_step(heur, pl, tl, ks, M_new,
-                                                 I_new, D_new)
+            M_new, I_new, D_new = wf._pruned(keep, M_new, I_new, D_new)
             i_ring[row] = I_new
             d_ring[row] = D_new
         else:
-            M_new = wf._prune_step(heur, pl, tl, ks, M_new)
+            M_new = wf._pruned(keep, M_new)
         m_ring[row] = M_new
-        rows_live = live.repeat_interleave(block_pairs)[:, None]
+        off_hist[row] = off
+        rows_live = rows(live)[:, None]
         for bt, code in zip(bts, codes):
+            if band:
+                code = wf._band_scatter(code, off, k_pad)
             wf._pack(bt, s, torch.where(rows_live, code, 0))
         s += 1
         nxt = live & block_live(s)
         steps = torch.where(live & ~nxt, s, steps)
         live = nxt
-    steps = steps.repeat_interleave(block_pairs)[:, None].to(torch.int32)
+    steps = rows(steps)[:, None].to(torch.int32)
     return (score[:, None], steps) + bts
 
 
@@ -153,9 +190,11 @@ def _heur_args(heur):
 
 
 def wfa_cuda(pattern, text, plen, tlen, *, pen, s_max: int, k_pad: int,
-             block_pairs: int, trace: bool = False, heur=None):
+             block_pairs: int, trace: bool = False, heur=None,
+             band_cap=None):
     """Launch the CUDA kernel on the current stream (no synchronisation);
-    same arguments and returns as :func:`wfa_plain`."""
+    same arguments and returns as :func:`wfa_plain`.  ``band_cap`` below
+    ``k_pad`` launches the band kernel."""
     from repro_torch.kernels.wfa import build
 
     model = scoring.as_model(pen)
@@ -172,7 +211,8 @@ def wfa_cuda(pattern, text, plen, tlen, *, pen, s_max: int, k_pad: int,
     BP = block_pairs
     affine = model.kind == "affine"
     W = model.window
-    if trace and BP * k_pad > lib.wfa_max_trace_cells():
+    band = band_cap is not None and band_cap < k_pad
+    if not band and trace and BP * k_pad > lib.wfa_max_trace_cells():
         raise ValueError(
             f"trace kernel takes block_pairs * k_pad <= "
             f"{lib.wfa_max_trace_cells()}, got {BP} * {k_pad}; lower "
@@ -191,30 +231,41 @@ def wfa_cuda(pattern, text, plen, tlen, *, pen, s_max: int, k_pad: int,
     kind, hp1, hp2 = _heur_args(heur)
     ptr = lambda t: None if t is None else t.data_ptr()
     m_bt, i_bt, d_bt = (bts + (None, None, None))[:3]
+    ptrs = (ptr(pattern), ptr(text), ptr(plen), ptr(tlen), ptr(score),
+            ptr(steps), ptr(m_bt), ptr(i_bt), ptr(d_bt))
+    dims = (B, pattern.shape[1], text.shape[1], BP, k_pad)
+    rest = (int(s_max), model.x, model.o, model.e, W, int(affine),
+            int(trace), kind, hp1, hp2)
     with torch.cuda.device(dev):     # the library sizes for the current card
-        n_scratch = lib.wfa_scratch_ints(B, BP, k_pad, W, int(affine))
-        scratch = torch.empty(n_scratch, **i32) if n_scratch else None
-        rc = lib.wfa_launch(
-            ptr(pattern), ptr(text), ptr(plen), ptr(tlen), ptr(score),
-            ptr(steps), ptr(m_bt), ptr(i_bt), ptr(d_bt), ptr(scratch),
-            B, pattern.shape[1], text.shape[1], BP, k_pad, int(s_max),
-            model.x, model.o, model.e, W, int(affine), int(trace), kind,
-            hp1, hp2, torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if band:
+            Kc = int(band_cap)
+            n_scratch = lib.wfa_band_scratch_ints(B, BP, Kc, W, int(affine))
+            scratch = torch.empty(n_scratch, **i32) if n_scratch else None
+            rc = lib.wfa_band_launch(*ptrs, ptr(scratch), *dims, Kc, *rest,
+                                     stream)
+        else:
+            n_scratch = lib.wfa_scratch_ints(B, BP, k_pad, W, int(affine))
+            scratch = torch.empty(n_scratch, **i32) if n_scratch else None
+            rc = lib.wfa_launch(*ptrs, ptr(scratch), *dims, *rest, stream)
     if rc != 0:
         raise RuntimeError(f"WFA kernel launch failed: "
                            f"{lib.wfa_error_string(rc).decode()} ({rc})")
-    LAUNCHES["trace" if trace else "score"] += 1
+    variant = "trace" if trace else "score"
+    LAUNCHES[f"{variant}_band" if band else variant] += 1
     return (score, steps) + bts
 
 
 def wfa_kernel(pattern, text, plen, tlen, *, pen, s_max: int, k_pad: int,
-               block_pairs: int, trace: bool = False, heur=None):
+               block_pairs: int, trace: bool = False, heur=None,
+               band_cap=None):
     """-> (score [B,1], steps [B,1]) plus, with ``trace``, the packed code
     planes.  CUDA tensors run the CUDA kernel; CPU tensors the plain
     version."""
     fn = wfa_cuda if pattern.device.type == "cuda" else wfa_plain
     return fn(pattern, text, plen, tlen, pen=pen, s_max=s_max, k_pad=k_pad,
-              block_pairs=block_pairs, trace=trace, heur=heur)
+              block_pairs=block_pairs, trace=trace, heur=heur,
+              band_cap=band_cap)
 
 
 def _check_meet(pattern, text, pat_rev, txt_rev, plen, tlen, starget,

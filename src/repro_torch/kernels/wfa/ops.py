@@ -22,8 +22,9 @@ Knobs threaded from ``AlignmentEngine(backend_opts=...)``:
 * ``gather``, ``ext_stride`` — accepted and ignored: the first selects how
   a TPU fetches characters (it has no per-lane gather), the second only
   changed speed there;
-* ``band_cap`` — the compacting band is not ported yet; anything but
-  ``None`` raises ``NotImplementedError``.
+* ``band_cap`` — the compacting band's width, rounded up to 128 lanes as
+  the JAX package does (:func:`_band_lanes`); ``None``, or a width that
+  reaches ``k_pad``, runs full width.
 """
 from __future__ import annotations
 
@@ -53,6 +54,14 @@ def resolve_block_pairs(block_pairs: Optional[int]) -> int:
     return bp
 
 
+def _band_lanes(band_cap, k_pad: int) -> Optional[int]:
+    """Lane-aligned compact ring width, or None for full width."""
+    if band_cap is None:
+        return None
+    kc = _round_up(max(int(band_cap), 1), LANE)
+    return kc if kc < k_pad else None
+
+
 def _prep(pattern, text, plen, tlen, block_pairs, device=None):
     dev = resolve_device(device)
     i32 = lambda a: torch.as_tensor(a, device=dev).to(torch.int32)
@@ -66,17 +75,14 @@ def _prep(pattern, text, plen, tlen, block_pairs, device=None):
 
 def _run(pattern, text, plen, tlen, *, pen, s_max, k_max, block_pairs, heur,
          band_cap, trace, device):
-    if band_cap is not None:
-        raise NotImplementedError(
-            "the kernel's compacting band (band_cap) is not ported yet")
     bp = resolve_block_pairs(block_pairs)
     pattern, text, plen2, tlen2, B = _prep(pattern, text, plen, tlen, bp,
                                            device)
+    k_pad = _round_up(2 * int(k_max) + 1, LANE)
     return B, wfa_kernel(pattern, text, plen2, tlen2, pen=pen,
-                         s_max=int(s_max),
-                         k_pad=_round_up(2 * int(k_max) + 1, LANE),
-                         block_pairs=bp, trace=trace,
-                         heur=scoring.as_heuristic(heur))
+                         s_max=int(s_max), k_pad=k_pad, block_pairs=bp,
+                         trace=trace, heur=scoring.as_heuristic(heur),
+                         band_cap=_band_lanes(band_cap, k_pad))
 
 
 def wfa_align(pattern, text, plen, tlen, *, pen, s_max: int, k_max: int,

@@ -109,13 +109,6 @@ def test_empty_and_tiny_pairs():
     _assert_same(want, got)
 
 
-def test_band_cap_not_ported():
-    P, plen, T, tlen = _batch(n=2)
-    with pytest.raises(NotImplementedError, match="band_cap"):
-        t_ops.wfa_align(P, T, plen, tlen, pen=t_scoring.GapAffine(),
-                        s_max=20, k_max=8, band_cap=128, device="cpu")
-
-
 @pytest.mark.parametrize("fn", ["wfa_align", "wfa_align_trace"])
 def test_ops_default_to_the_card(fn, monkeypatch):
     """Without ``device`` the wrappers run on the card, and raise when there

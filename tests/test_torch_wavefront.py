@@ -88,13 +88,6 @@ def test_keep_mask_matches_reference():
     assert t_wf.keep_mask(t_scoring.EXACT, None, None, None, None) is None
 
 
-def test_band_cap_not_ported():
-    P, plen, T, tlen = _batch(0, 2, 20, 0.05)
-    with pytest.raises(NotImplementedError, match="band_cap"):
-        t_wf.wfa_scores(P, T, plen, tlen, pen=t_scoring.GapAffine(),
-                        s_max=20, k_max=8, band_cap=17, device="cpu")
-
-
 @pytest.mark.parametrize("fn", ["wfa_scores", "wfa_scores_packed"])
 def test_solvers_default_to_the_card(fn, monkeypatch):
     """Without ``device`` the solvers run on the card, and raise when there
