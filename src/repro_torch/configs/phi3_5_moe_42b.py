@@ -1,0 +1,12 @@
+"""phi3.5-moe-42b-a6.6b [moe]: 32L d_model=4096 32H (GQA kv=8) d_ff=6400
+vocab=32064 — 16 experts top-2.  [hf:microsoft/Phi-3.5-MoE-instruct; hf]"""
+from repro_torch.models.common import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3.5-moe-42b-a6.6b", family="moe",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, d_head=128,
+    d_ff=6400, vocab_size=32064,
+    n_experts=16, top_k=2, n_shared_experts=0, d_expert=6400,
+    rope_theta=1e4,
+    remat_policy="dots",
+)

@@ -55,7 +55,7 @@ from repro_torch.core import scoring
 from repro_torch.core import wavefront as wf
 from repro_torch.core.backends import BackendSpec, _accepts_kw, get_backend
 from repro_torch.core.penalties import DEFAULT
-from repro_torch.core.wavefront import resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 

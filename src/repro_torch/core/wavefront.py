@@ -62,6 +62,7 @@ import torch
 
 from repro_torch.core import scoring
 from repro_torch.core.scoring import AdaptiveBand, ZDrop
+from repro_torch.device import resolve_device
 
 NEG = -(1 << 20)  # invalid-cell sentinel; survives +1 arithmetic harmlessly
 _VALID_THRESH = NEG // 2
@@ -104,17 +105,6 @@ def _check_states(model, begin_state: str, end_state: str) -> None:
 
 def _resolve(pen, heur):
     return scoring.as_model(pen), scoring.as_heuristic(heur)
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device the port runs on: ``None`` means the card, which must
-    exist."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "port on the CPU")
-    return dev
 
 
 def _prep(pattern, text, plen, tlen, device=None):

@@ -33,8 +33,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core import scoring
-from repro_torch.core.wavefront import (BidirMeetResult, _reverse_rows,
-                                        resolve_device)
+from repro_torch.core.wavefront import BidirMeetResult, _reverse_rows
+from repro_torch.device import resolve_device
 from repro_torch.kernels.wfa.kernel import wfa_kernel, wfa_meet_kernel
 
 LANE = 128
