@@ -7,9 +7,10 @@ Phases (each raises on failure, and the script then exits non-zero):
 
 1. environment — torch version, the card, its name and power limit;
 2. build — ``nvcc`` builds the CUDA kernels from ``csrc/wfa.cu``,
-   ``csrc/wfa_meet.cu`` and ``kernels/flash_attention/csrc/
-   flash_attention.cu``, one process per source, all started together, and
-   prints each kernel's ptxas registers and spills;
+   ``csrc/wfa_meet.cu``, ``kernels/flash_attention/csrc/
+   flash_attention.cu`` and ``flash_wgmma.cu``, one process per source,
+   all started together, and prints each kernel's ptxas registers and
+   spills (the wgmma flash body must not spill);
 3. kernel vs plain — the CUDA WFA kernel against its plain PyTorch version
    on the card, over {GapAffine(4,6,2), GapLinear, Edit} x {exact,
    AdaptiveBand, ZDrop} x {score, trace}, on one wave of 4,096 pairs of
@@ -52,23 +53,26 @@ Phases (each raises on failure, and the script then exits non-zero):
    must be upper bounds of the Gotoh optimum; the same runs on the ``ring``
    backend (one window per pair) are the yardstick, and the counts of pairs
    equal to the full-width heuristic run are printed;
-9. flash kernel vs plain — the CUDA flash-attention kernel against its
-   plain version over {MHA 8/8, GQA 16/8, MQA 16/1} x {causal, non-causal}
-   x {fp32, bf16} x dh {64, 128} x S {128, 250, 1,024, 2,048} (non-causal
-   only at block multiples) plus non-causal Sq 128 over Sk 1,024, within
-   3e-5 (fp32, no TF32) and 2e-2 (bf16), and in bf16 also within 2 ulps of
-   each output plus a floor; bf16 at dh 64 / 128 must run on the tensor
-   cores and runs once more on the fp32 pipes; a control shows that this
-   check passes a sound attention and fails one with a key tile dropped;
-   then at the served shape (B 8, S 2,048, H 16, KV 8, dh 128, bf16,
-   causal) the kernel, its fp32-pipe body, its plain version and
-   ``scaled_dot_product_attention`` (the yardstick, timed only) are timed;
+9. flash kernel vs plain — every CUDA flash-attention body that takes the
+   inputs against the plain version over {MHA 8/8, GQA 16/8, MQA 16/1,
+   qwen3-32b's 64/8, granite-34b's 48/1} x {causal, non-causal} x {fp32,
+   bf16} x dh {64, 128} x S {128, 250, 1,024, 2,048} (non-causal only at
+   block multiples) plus non-causal Sq 128 over Sk 1,024, within 3e-5
+   (fp32, no TF32) and 2e-2 (bf16), and in bf16 also within 2 ulps of each
+   output plus a floor; bf16 at dh 64 / 128 must run the wgmma body by
+   default and runs once more on ``mma.sync`` and on the fp32 pipes; a
+   control shows that this check passes a sound attention and fails one
+   with a key tile dropped, in the materialised attention and in the wgmma
+   body itself; then at the served shape (B 8, S 2,048, H 16, KV 8, dh
+   128, bf16, causal) the wgmma, ``mma.sync`` and fp32-pipe bodies, the
+   plain version and ``scaled_dot_product_attention`` (the yardstick, timed
+   only) are timed in turns, twice;
 10. serve path — qwen3-0.6b at full width with random weights from a
    seeded generator on the card: ``repro_torch.launch.serve.main(["--arch",
    "qwen3-0.6b"])`` (8 requests of 4-16 tokens, 32 new each), then one
    ``BatchServer`` wave of 8 prompts of 2,048 tokens, 32 new, ``max_seq``
    4,096; each prefill must launch the flash kernel once per layer on the
-   tensor cores, every launch of the 2,048-token prefill must equal the
+   wgmma body, every launch of the 2,048-token prefill must equal the
    plain version on its own inputs (the bf16 check above), and for 2
    requests the logits of prefill + decode (plain attention over the
    cache) must equal those of one ``forward`` (flash kernel) over the same
@@ -822,29 +826,40 @@ def attention_bound(B, Sq, Sk, H, KV, dh, causal):
             "bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def flash_bodies(q):
+    """The CUDA bodies that take these inputs, the default first: wgmma,
+    mma.sync and the fp32 pipes for bf16 at dh 64 and 128, else the fp32
+    pipes."""
+    import torch
+    if q.dtype == torch.bfloat16 and q.shape[3] in (64, 128):
+        return ("wgmma", "mma_sync", "fp32_pipes")
+    return ("fp32_pipes",)
+
+
 def flash_pair(FK, fops, q, k, v, causal):
-    """(kernel, plain, kernel on the fp32 pipes) outputs on the same inputs,
-    padded as the ops wrapper pads them, sliced back to Sq.  bf16 at dh 64
-    and 128 must take the tensor-core path and runs once more on the fp32
-    pipes; other inputs take the fp32 pipes, once, which is both outputs."""
+    """({body: output}, plain output) on the same inputs, padded as the ops
+    wrapper pads them, sliced back to Sq.  The default call must take the
+    first of :func:`flash_bodies`; the others run by name; each counts one
+    launch under its body."""
     import torch
     Sq = q.shape[1]
     qp, kp, vp, bq, bk = fops.pad_blocks(q, k, v, causal=causal)
-    mma = q.dtype == torch.bfloat16 and q.shape[3] in (64, 128)
+    bodies = flash_bodies(q)
     before = dict(FK.PATH_LAUNCHES)
-    got = FK.flash_attention_cuda(qp, kp, vp, causal=causal, block_q=bq,
-                                  block_k=bk)
-    fma = (FK.flash_attention_cuda(qp, kp, vp, causal=causal, block_q=bq,
-                                   block_k=bk, fp32_pipes=True)
-           if mma else got)
+    outs = {bodies[0]: FK.flash_attention_cuda(qp, kp, vp, causal=causal,
+                                               block_q=bq, block_k=bk)}
+    for body in bodies[1:]:
+        outs[body] = FK.flash_attention_cuda(qp, kp, vp, causal=causal,
+                                             block_q=bq, block_k=bk,
+                                             body=body)
     ran = {key: FK.PATH_LAUNCHES[key] - before[key] for key in before}
-    if ran != {"tensor_cores": int(mma), "fp32_pipes": 1}:
+    if ran != {key: int(key in bodies) for key in before}:
         raise AssertionError(f"{q.dtype} dh {q.shape[3]} ran the bodies "
-                             f"{ran}")
+                             f"{ran}, not {bodies}")
     torch.cuda.synchronize()
     want = FK.flash_attention_plain(qp, kp, vp, causal=causal, block_q=bq,
                                     block_k=bk)
-    return got[:, :Sq], want[:, :Sq], fma[:, :Sq]
+    return {b: o[:, :Sq] for b, o in outs.items()}, want[:, :Sq]
 
 
 def bf16_ulp(x):
@@ -919,17 +934,19 @@ def attention_fp32(q, k, v, causal, drop=None):
 
 
 def phase_flash_grid(FK, fops, dev):
-    """Phase 9a: the CUDA flash kernel against its plain version over {MHA
-    8/8, GQA 16/8, MQA 16/1} x {causal, non-causal} x {fp32, bf16} x dh
-    {64, 128}, B 2, S in {128, 250, 1,024, 2,048} (non-causal only where S
-    is a block multiple), plus non-causal Sq 128 over Sk 1,024 -> max |err|
-    and worst share of the limit per dtype."""
+    """Phase 9a: every CUDA flash body that takes the inputs against the
+    plain version over {MHA 8/8, GQA 16/8, MQA 16/1, 64/8 (qwen3-32b, G 8),
+    48/1 (granite-34b, G 48: 96 live rows of the wgmma body's 128)} x
+    {causal, non-causal} x {fp32, bf16} x dh {64, 128}, B 2, S in {128,
+    250, 1,024, 2,048} (non-causal only where S is a block multiple), plus
+    non-causal Sq 128 over Sk 1,024 -> max |err| per dtype and the worst
+    share of the limits per body."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(14)
     worst = {name: 0.0 for name in FLASH_TOL}
-    share = dict(worst)
+    share = {body: 0.0 for body in FK.PATH_LAUNCHES}
     n = 0
-    for H, KV in ((8, 8), (16, 8), (16, 1)):
+    for H, KV in ((8, 8), (16, 8), (16, 1), (64, 8), (48, 1)):
         for dname in FLASH_TOL:
             dt = getattr(torch, dname)
             for dh in (64, 128):
@@ -941,40 +958,41 @@ def phase_flash_grid(FK, fops, dev):
                         shape, generator=gen, device=dev) * 0.5).to(dt)
                     q = rnd(2, Sq, H, dh)
                     k, v = rnd(2, Sk, KV, dh), rnd(2, Sk, KV, dh)
-                    got, want, fma = flash_pair(FK, fops, q, k, v, causal)
-                    (e1, s1), (e2, s2) = (flash_check(got, want),
-                                          flash_check(fma, want))
-                    if not max(s1, s2) <= 1:
-                        raise AssertionError(
-                            f"flash kernel != plain: H {H} KV {KV} {dname} "
-                            f"dh {dh} Sq {Sq} Sk {Sk} causal {causal}: max "
-                            f"|err| {max(e1, e2)}, {max(s1, s2):.3g} of the "
-                            f"limit")
-                    worst[dname] = max(worst[dname], e1, e2)
-                    share[dname] = max(share[dname], s1, s2)
+                    outs, want = flash_pair(FK, fops, q, k, v, causal)
+                    for body, got in outs.items():
+                        e, sh = flash_check(got, want)
+                        if not sh <= 1:
+                            raise AssertionError(
+                                f"flash body {body} != plain: H {H} KV {KV} "
+                                f"{dname} dh {dh} Sq {Sq} Sk {Sk} causal "
+                                f"{causal}: max |err| {e}, {sh:.3g} of the "
+                                f"limit; {flash_worst(got, want)}")
+                        worst[dname] = max(worst[dname], e)
+                        share[body] = max(share[body], sh)
                     n += 1
-    log(f"[flash] kernel = plain on {n} cases (bf16: both the tensor-core "
-        f"and the fp32-pipe path): max |err| fp32 {worst['float32']:.3g} "
-        f"(tol 3e-5), bf16 {worst['bfloat16']:.3g} (tol 2e-2, and "
-        f"{FLASH_BF16_ULPS} ulps of |want| + {FLASH_BF16_FLOOR} x the row's "
-        f"mean |want| elementwise); worst share of these limits fp32 "
-        f"{share['float32']:.3f}, bf16 {share['bfloat16']:.3f}")
+    log(f"[flash] every body = plain on {n} cases (bf16 at dh 64 / 128: "
+        f"wgmma, mma.sync and the fp32 pipes): max |err| fp32 "
+        f"{worst['float32']:.3g} (tol 3e-5), bf16 {worst['bfloat16']:.3g} "
+        f"(tol 2e-2, and {FLASH_BF16_ULPS} ulps of |want| + "
+        f"{FLASH_BF16_FLOOR} x the row's mean |want| elementwise); worst "
+        f"share of these limits by body " + ", ".join(
+            f"{body} {sh:.3f}" for body, sh in share.items()))
     return worst, share
 
 
 def phase_flash_control(FK, dev):
     """Phase 9b: the bf16 check must pass a sound attention and fail one
-    that leaves a 64-key tile out.  At S 2,048 (GQA 16/8, dh 128, B 2,
-    causal and not), two sound attentions are held against the plain
-    version (512-key tiles) and must pass: the plain version on the
-    kernel's 64-key tiles, and the materialised fp32 attention (p rounded
-    against each row's final max); the latter with keys 1,024-1,087 dropped
-    must fail."""
+    that leaves a key tile out.  At S 2,048 (GQA 16/8, dh 128, B 2, causal
+    and not), against the plain version (512-key tiles): the plain version
+    on 64-key tiles, the materialised fp32 attention (p rounded against
+    each row's final max) and the wgmma body must pass; the materialised
+    attention with keys 1,024-1,087 dropped and the wgmma body with its
+    128-key tile 8 (keys 1,024-1,151) dropped must fail."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(2049)
     rnd = lambda *shape: (torch.randn(shape, generator=gen, device=dev)
                           * 0.5).to(torch.bfloat16)
-    S, drop = 2048, (1024, 1088)
+    S, drop, tile = 2048, (1024, 1088), 8
     q, k, v = rnd(2, S, 16, 128), rnd(2, S, 8, 128), rnd(2, S, 8, 128)
     out = []
     for causal in (True, False):
@@ -983,25 +1001,33 @@ def phase_flash_control(FK, dev):
             q, k, v, causal=causal, block_q=64, block_k=64), want)
         sound = flash_check(attention_fp32(q, k, v, causal), want)
         fault = flash_check(attention_fp32(q, k, v, causal, drop), want)
-        if not max(tiled[1], sound[1]) <= 1:
+        body = flash_check(FK.flash_attention_cuda(
+            q, k, v, causal=causal, body="wgmma"), want)
+        body_fault = flash_check(FK.flash_attention_cuda(
+            q, k, v, causal=causal, body="wgmma", drop_key_tile=tile), want)
+        if not max(tiled[1], sound[1], body[1]) <= 1:
             raise AssertionError(f"the bf16 check fails a sound attention "
                                  f"(causal {causal}): 64-key tiles {tiled}, "
-                                 f"materialised {sound}")
-        if not fault[1] > 1:
+                                 f"materialised {sound}, wgmma {body}")
+        if not min(fault[1], body_fault[1]) > 1:
             raise AssertionError(f"the bf16 check passes a dropped key tile "
-                                 f"(causal {causal}): {fault}")
+                                 f"(causal {causal}): materialised {fault}, "
+                                 f"wgmma {body_fault}")
         out.append(f"causal {causal}: 64-key tiles {tiled[1]:.3f}, "
-                   f"materialised {sound[1]:.3f}, dropped tile "
-                   f"{fault[1]:.2f} of the limit (max |err| {fault[0]:.3g})")
+                   f"materialised {sound[1]:.3f}, wgmma {body[1]:.3f}; "
+                   f"dropped tile: materialised {fault[1]:.2f}, wgmma "
+                   f"{body_fault[1]:.2f} of the limit (max |err| "
+                   f"{fault[0]:.3g}, {body_fault[0]:.3g})")
     log(f"[flash] bf16 check control at S {S}: " + "; ".join(out))
 
 
 def phase_flash_timing(FK, fops, dev):
     """Phase 9c: at the served shape (B 8, S 2,048, H 16, KV 8, dh 128,
-    bf16, causal) the kernel (tensor cores), its fp32-pipe body, its plain
-    version and one PyTorch call that computes the same function
-    (scaled_dot_product_attention, the yardstick, never on the port's
-    path), each timed with CUDA events."""
+    bf16, causal) the wgmma body (the path's), the mma.sync and fp32-pipe
+    bodies, the plain version and one PyTorch call that computes the same
+    function (scaled_dot_product_attention, the yardstick, never on the
+    port's path), each timed with CUDA events, in turns: once in that order
+    and once in the reverse; each time is the mean of its two turns."""
     import torch
     import torch.nn.functional as F
     B, S, H, KV, dh = LM_BATCH, LM_PROMPT, 16, 8, 128
@@ -1009,41 +1035,53 @@ def phase_flash_timing(FK, fops, dev):
     rnd = lambda *shape: (torch.randn(shape, generator=gen, device=dev)
                           * 0.5).to(torch.bfloat16)
     q, k, v = rnd(B, S, H, dh), rnd(B, S, KV, dh), rnd(B, S, KV, dh)
-    got, want, fma = flash_pair(FK, fops, q, k, v, True)
-    (err, share), (fma_err, fma_share) = (flash_check(got, want),
-                                          flash_check(fma, want))
-    if not max(share, fma_share) <= 1:
-        raise AssertionError(f"flash kernel != plain at the served shape: "
-                             f"{err} ({share:.3g} of the limit), fp32 pipes "
-                             f"{fma_err} ({fma_share:.3g})")
+    outs, want = flash_pair(FK, fops, q, k, v, True)
+    checks = {body: flash_check(got, want) for body, got in outs.items()}
+    if not max(sh for _, sh in checks.values()) <= 1:
+        raise AssertionError(f"flash bodies != plain at the served shape: "
+                             f"{checks}")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                   enable_gqa=True)
     lib_err = flash_check(sdpa().transpose(1, 2), want)[0]
-    ms = cuda_ms(lambda: FK.flash_attention_cuda(q, k, v, causal=True), 20)
-    plain_ms = cuda_ms(lambda: FK.flash_attention_plain(q, k, v, causal=True),
-                       3)
-    library_ms = cuda_ms(sdpa, 20)
-    fma_ms = cuda_ms(lambda: FK.flash_attention_cuda(
-        q, k, v, causal=True, fp32_pipes=True), 5)
+    runs = {  # name: (fn, repetitions)
+        "wgmma": (lambda: FK.flash_attention_cuda(q, k, v, causal=True), 50),
+        "mma_sync": (lambda: FK.flash_attention_cuda(
+            q, k, v, causal=True, body="mma_sync"), 20),
+        "fp32_pipes": (lambda: FK.flash_attention_cuda(
+            q, k, v, causal=True, body="fp32_pipes"), 5),
+        "plain": (lambda: FK.flash_attention_plain(q, k, v, causal=True), 3),
+        "library": (sdpa, 50)}
+    turns = {name: [] for name in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for name in order:
+            turns[name].append(cuda_ms(*runs[name]))
+    ms = {name: sum(t) / len(t) for name, t in turns.items()}
     bound_ms, bound_by = attention_bound(B, S, S, H, KV, dh, True)
     log(f"[flash] served shape B {B} S {S} H {H} KV {KV} dh {dh} bf16 "
-        f"causal: kernel {ms:.3f} ms (tensor cores, |err| {err:.3g}, "
-        f"{share:.3f} of the limit; on the fp32 pipes {fma_ms:.3f} ms, |err| "
-        f"{fma_err:.3g}), plain {plain_ms:.3f} ms, "
-        f"scaled_dot_product_attention {library_ms:.3f} ms (|err| vs plain "
-        f"{lib_err:.3g}), bound {bound_ms:.4f} ms ({bound_by}): "
-        f"{100 * bound_ms / ms:.2f}% of it")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                fma_ms=fma_ms, bound_ms=bound_ms, bound_by=bound_by,
-                max_abs_err=max(err, fma_err), share=max(share, fma_share))
+        f"causal, bound {bound_ms:.4f} ms ({bound_by}); ms (two turns) and "
+        f"share of the bound: " + "; ".join(
+            f"{name} {ms[name]:.4f} ({', '.join(f'{t:.4f}' for t in turns[name])}"
+            f") {100 * bound_ms / ms[name]:.2f}%" for name in runs)
+        + "; |err| vs plain " + ", ".join(
+            f"{body} {e:.3g} ({sh:.3f} of the limit)"
+            for body, (e, sh) in checks.items())
+        + f", scaled_dot_product_attention {lib_err:.3g}; wgmma "
+        f"{ms['mma_sync'] / ms['wgmma']:.2f}x faster than mma.sync, "
+        f"{ms['wgmma'] / ms['library']:.2f}x the library call's time")
+    return dict(ms=ms["wgmma"], mma_sync_ms=ms["mma_sync"],
+                fma_ms=ms["fp32_pipes"], plain_ms=ms["plain"],
+                library_ms=ms["library"], bound_ms=bound_ms,
+                bound_by=bound_by,
+                max_abs_err=max(e for e, _ in checks.values()),
+                share=max(sh for _, sh in checks.values()))
 
 
 def phase_serve_defaults(FK):
     """Phase 10a: the JAX defaults through the port's launcher at full width
     (``serve.main(["--arch", "qwen3-0.6b"])``: 8 requests of 4-16 tokens,
     32 new each, batch 4, two waves); every prefill layer must launch the
-    flash kernel, on the tensor cores."""
+    flash kernel, on the wgmma body."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     n_layers = get_config(LM_ARCH).n_layers
@@ -1057,10 +1095,9 @@ def phase_serve_defaults(FK):
     if launches != 2 * n_layers:
         raise AssertionError(f"two prefills launched the flash kernel "
                              f"{launches} times, not {2 * n_layers}")
-    if FK.PATH_LAUNCHES["tensor_cores"] != launches:
+    if FK.PATH_LAUNCHES["wgmma"] != launches:
         raise AssertionError(f"the prefills ran the flash bodies "
-                             f"{FK.PATH_LAUNCHES}, not all on the tensor "
-                             f"cores")
+                             f"{FK.PATH_LAUNCHES}, not all on wgmma")
     log(f"[serve] launcher defaults ({LM_ARCH}, 2 waves) in {wall:.1f}s "
         f"(weights made on the card included); flash launches {launches}")
     return launches
@@ -1149,10 +1186,9 @@ def phase_serve_long(FK, dev, card):
     if launches != cfg.n_layers or len(captured) != cfg.n_layers:
         raise AssertionError(f"the prefill launched the flash kernel "
                              f"{launches} times, not {cfg.n_layers}")
-    if FK.PATH_LAUNCHES["tensor_cores"] != launches:
+    if FK.PATH_LAUNCHES["wgmma"] != launches:
         raise AssertionError(f"the prefill ran the flash bodies "
-                             f"{FK.PATH_LAUNCHES}, not all on the tensor "
-                             f"cores")
+                             f"{FK.PATH_LAUNCHES}, not all on wgmma")
     if any(len(o) != LM_PROMPT + LM_NEW for o in outs):
         raise AssertionError(f"lengths {[len(o) for o in outs]}")
     n_steps = len(logits) - 1
@@ -1183,7 +1219,7 @@ def phase_serve_long(FK, dev, card):
     shape = tuple(captured[0][0].shape)
     del captured
     log(f"[serve] {cfg.n_layers} prefill flash launches (q {shape}, all on "
-        f"the tensor cores) = plain: max |err| {err:.3g} (tol 2e-2), worst "
+        f"the wgmma body) = plain: max |err| {err:.3g} (tol 2e-2), worst "
         f"share {share:.3f} of the limits; of the elementwise limit alone "
         f"{where}")
 
@@ -1249,21 +1285,32 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f}s ({build.BUILD_INFO['cpu_seconds']:.1f}"
         f"s of compiler CPU: one nvcc after another would take at least "
         f"that)")
-    fentries = []
+    fentries, wgmma_regs = [], 0
     for name, sp, r in re.findall(
             r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores"
             r".*?Used (\d+) registers", fbuild.BUILD_INFO["log"], re.S):
-        m = re.search(r"(flash_(?:mma_)?kernel)I(f|13__nv_bfloat16)?Li(\d+)E",
-                      name)
+        m = re.search(r"(flash_(?:mma_|wgmma_)?kernel)I(f|13__nv_bfloat16)?"
+                      r"Li(\d+)E", name)
         if m:
             t = {"f": "float,", None: ""}.get(m.group(2), "bf16,")
             fentries.append(f"{m.group(1)}<{t}{m.group(3)}> {r} registers, "
                             f"{sp} B spilled")
-    if len(fentries) != 8:
+            if m.group(1) == "flash_wgmma_kernel":
+                wgmma_regs = max(wgmma_regs, int(r))
+                if int(sp):
+                    raise AssertionError(f"the wgmma flash body spills: "
+                                         f"{fentries[-1]}")
+    if len(fentries) != 10:
         raise AssertionError(f"ptxas reported {len(fentries)} flash kernels, "
-                             f"not 8 (fp32 pipes: 2 types x 3 head dims; "
-                             f"tensor cores: 2 head dims)")
+                             f"not 10 (fp32 pipes: 2 types x 3 head dims; "
+                             f"mma.sync and wgmma: 2 head dims each)")
     log("[build] ptxas (flash): " + "; ".join(fentries))
+    # ptxas says where it ignores setmaxnreg or serialises wgmma
+    warned = sorted({w.strip() for w in re.findall(
+        r"(?im)^.*(?:warning|setmaxnreg|serialized).*$",
+        fbuild.BUILD_INFO["log"])})
+    if warned:
+        log("[build] ptxas notes (flash): " + " | ".join(warned))
     # ptxas -v: per entry function, its spill stores and registers
     entries = re.findall(r"Compiling entry function '(\w+)'.*?"
                          r"(\d+) bytes spill stores.*?Used (\d+) registers",
@@ -1406,8 +1453,11 @@ def main() -> int:
         kernels.append(rec)
     kernels.append({
         "name": "flash_attention", "route": "cuda",
+        # the path's body (entry point and the other bodies: csrc/
+        # flash_attention.cu)
+        "body": "wgmma",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
+                  "flash_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:82",
         # the main path's prefills: the launcher's two waves and the
         # 2,048-token wave
@@ -1418,11 +1468,14 @@ def main() -> int:
         # bf16 also each |err| against 2 ulps of |want| plus a row floor)
         # over the grid, the served shape and the prefill launches; <= 1
         # passes
-        "worst_share_of_limit": max(max(flash_share.values()),
+        "worst_share_of_limit": max(flash_share["wgmma"],
                                     flash["share"], served["share"]),
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
-        # the same kernel's fp32-pipe body (fp32, other head dims) there
-        "fp32_pipe_ms": flash["fma_ms"],
+        # the other bodies on the same inputs: mma.sync (the yardstick of
+        # the wgmma design) and the fp32 pipes (fp32, other head dims)
+        "mma_sync_ms": flash["mma_sync_ms"], "fp32_pipe_ms": flash["fma_ms"],
+        # ptxas at entry (setmaxnreg then gives the consumers 240)
+        "registers": wgmma_regs,
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)

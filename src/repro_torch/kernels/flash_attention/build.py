@@ -1,6 +1,8 @@
-"""Build and load the CUDA flash-attention kernel (``csrc/flash_attention.cu``)
-through the port's build helper (:mod:`repro_torch.kernels.build`), cached
-under ``build/`` beside this file.
+"""Build and load the CUDA flash-attention kernels through the port's build
+helper (:mod:`repro_torch.kernels.build`), cached under ``build/`` beside
+this file: ``csrc/flash_attention.cu`` (the entry points, the ``mma.sync``
+and fp32-pipe bodies) and ``csrc/flash_wgmma.cu`` (the wgmma body), one
+nvcc each.
 
     python -m repro_torch.kernels.flash_attention.build   # build, print ptxas
 """
@@ -15,17 +17,16 @@ from repro_torch.kernels.build import Library
 def _declare(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = ([P] * 4 + [I] * 8
-                                           + [ctypes.c_float, I,
-                                              ctypes.POINTER(I), P])
+                                           + [ctypes.c_float, I, I, P])
     lib.flash_attention_launch.restype = I
-    lib.flash_attention_max_group.argtypes = [I]
+    lib.flash_attention_max_group.argtypes = [I, I]
     lib.flash_attention_max_group.restype = I
     lib.flash_attention_error_string.argtypes = [I]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
 
 
 LIB = Library("flash_attention", os.path.dirname(os.path.abspath(__file__)),
-              ("flash_attention.cu",), _declare)
+              ("flash_attention.cu", "flash_wgmma.cu"), _declare)
 SOURCES = LIB.sources
 BUILD_INFO = LIB.info
 load = LIB.load

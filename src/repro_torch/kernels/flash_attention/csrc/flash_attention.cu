@@ -17,18 +17,22 @@
 // contiguous, float or bf16.  Any Sq and Sk (keys past Sk weigh nothing),
 // 1 <= dh <= 256, G up to the rows of one tile.
 //
-// Design.  Two kernels compute it; flash_attention_launch picks and says
-// which.  bf16 at head dims 64 and 128 (the model path) runs
-// flash_mma_kernel on the tensor cores (mma.sync m16n8k16, below); fp32,
-// other head dims and unaligned rows run flash_kernel on the fp32 pipes.  Both: one CTA of 128
-// threads per (q tile, batch x KV head); the tile holds BQ positions of all
-// G query heads of that KV head (R = G * BQ <= 64 rows, 32 for dh > 128 on
-// the fp32 pipes), as the TPU kernel puts the G heads in one block.  The
-// CTA walks the key tiles in order, which is the TPU grid's sequential last
-// axis: Q is staged once in shared memory, each K/V tile is staged in
-// shared memory, and the running (m, l, acc) live in registers.  Under
-// causal, key tiles wholly above the diagonal are never loaded (they would
-// add exp(-1e30 - m) = 0), and the heaviest q tiles are scheduled first.
+// Design.  Three bodies compute it; the caller names one (body code 0, 1
+// or 2, chosen in kernel.py::select_body).  The model path, bf16 at head
+// dims 64 and 128 on 16-byte aligned rows, runs flash_wgmma_kernel
+// (flash_wgmma.cu: TMA-fed, warp-specialised wgmma, 128-row tiles).
+// flash_mma_kernel (mma.sync m16n8k16, below) takes the same inputs and
+// stays as the yardstick the new body is timed against; fp32, other head
+// dims and unaligned rows run flash_kernel on the fp32 pipes.  The last
+// two: one CTA of 128 threads per (q tile, batch x KV head); the tile
+// holds BQ positions of all G query heads of that KV head (R = G * BQ <= 64
+// rows, 32 for dh > 128 on the fp32 pipes), as the TPU kernel puts the G
+// heads in one block.  The CTA walks the key tiles in order, which is the
+// TPU grid's sequential last axis: Q is staged once in shared memory, each
+// K/V tile is staged in shared memory, and the running (m, l, acc) live in
+// registers.  Under causal, key tiles wholly above the diagonal are never
+// loaded (they would add exp(-1e30 - m) = 0), and the heaviest q tiles are
+// scheduled first.
 //
 // flash_kernel: the threads form a 16 x 8 grid in which each thread
 // computes an RA x KB block of q k^T and an RA x DC block of the
@@ -40,11 +44,10 @@
 //
 // What bounds it.  The served shape (B 8, S 2,048, H 16, KV 8, dh 128,
 // causal, bf16) needs 137.5 GFLOP and 201 MB: 0.139 ms at the tensor
-// cores' 989 TFLOP/s, so the bound is operations.  mma.sync reaches only
-// part of that rate (wgmma is Hopper's full-rate instruction), the tiles
-// are loaded synchronously (no cp.async / TMA stages), and the softmax's
-// expf runs on the SFU between the two products; warp-specialised wgmma
-// with TMA-fed stages is the lever for the kernel-speed work.
+// cores' 989 TFLOP/s, so the bound is operations.  The two bodies here
+// reach little of it: mma.sync is not Hopper's full-rate instruction (wgmma
+// is), their tiles load synchronously, and their softmax's expf runs
+// between the two products.  flash_wgmma.cu is the design for that bound.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -518,9 +521,10 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
   return cudaGetLastError();
 }
 
-// The tensor-core path takes bf16 at dh 64 or 128 on 16-byte aligned rows.
-bool mma_applies(const void* q, const void* k, const void* v, const void* o,
-                 int dh, int dtype) {
+// The tensor-core bodies take bf16 at dh 64 or 128 on 16-byte aligned
+// bases (TMA needs them; rows of 64 or 128 bf16 keep every stride aligned).
+bool tensor_core_inputs(const void* q, const void* k, const void* v,
+                        const void* o, int dh, int dtype) {
   const uintptr_t bits = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
                          (uintptr_t)o;
   return dtype == 1 && (dh == 64 || dh == 128) && bits % 16 == 0;
@@ -544,38 +548,60 @@ int launch_fma(const void* q, const void* k, const void* v, void* o, int B,
   return cudaErrorInvalidValue;
 }
 
+// body codes of flash_attention_launch
+constexpr int BODY_FP32_PIPES = 0;
+constexpr int BODY_MMA_SYNC = 1;
+constexpr int BODY_WGMMA = 2;
+
 }  // namespace
+
+// flash_wgmma.cu
+int flash_wgmma_launch(const void* q, const void* k, const void* v, void* o,
+                       int B, int Sq, int Sk, int H, int KV, int dh,
+                       int causal, float scale, int drop_tile,
+                       cudaStream_t stream);
+int flash_wgmma_max_group();
 
 extern "C" {
 
-// Launch one attention on `stream` (no synchronisation); dtype 0 = float,
-// 1 = bf16.  bf16 at dh 64 or 128 on 16-byte aligned rows runs on the
-// tensor cores unless fp32_pipes is set; everything else on the fp32 pipes.
-// *tensor_cores is set to 1 when the launch took the tensor-core path, else
-// 0.  Returns cudaGetLastError() after the launch (0 = launched); faults
-// during the run surface at the next sync.
+// Launch one attention on `stream` (no synchronisation) with the body
+// named by `body`: 0 the fp32 pipes (float or bf16, any dh up to 256),
+// 1 mma.sync, 2 wgmma (both bf16 at dh 64 or 128 on 16-byte aligned
+// bases); dtype 0 = float, 1 = bf16.  drop_tile >= 0 (wgmma only) leaves
+// that 128-key tile out: a planted fault for the checks' control, -1 in
+// every real call.  Returns cudaErrorInvalidValue for a body that cannot
+// take the inputs, else cudaGetLastError() after the launch (0 =
+// launched); faults during the run surface at the next sync.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int Sq, int Sk, int H, int KV,
                            int dh, int dtype, int causal, float scale,
-                           int fp32_pipes, int* tensor_cores, void* stream) {
-  *tensor_cores = 0;
+                           int body, int drop_tile, void* stream) {
   int err = check_args(B, Sq, Sk, H, KV, dh);
   if (err != cudaSuccess) return err;
+  if (body < BODY_FP32_PIPES || body > BODY_WGMMA ||
+      (drop_tile >= 0 && body != BODY_WGMMA) ||
+      (body != BODY_FP32_PIPES &&
+       !tensor_core_inputs(q, k, v, o, dh, dtype)))
+    return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  if (!fp32_pipes && mma_applies(q, k, v, o, dh, dtype)) {
-    *tensor_cores = 1;
+  if (body == BODY_WGMMA)
+    return flash_wgmma_launch(q, k, v, o, B, Sq, Sk, H, KV, dh, causal,
+                              scale, drop_tile, st);
+  if (body == BODY_MMA_SYNC)
     return dh == 64 ? launch_mma<64>(q, k, v, o, B, Sq, Sk, H, KV, causal,
                                      scale, st)
                     : launch_mma<128>(q, k, v, o, B, Sq, Sk, H, KV, causal,
                                       scale, st);
-  }
   return launch_fma(q, k, v, o, B, Sq, Sk, H, KV, dh, dtype, causal, scale,
                     st);
 }
 
-// Rows (position, head) of one CTA for head dim dh: the largest G served.
-int flash_attention_max_group(int dh) {
+// Rows (position, head) of one CTA of `body` at head dim dh: the largest G
+// that body serves.
+int flash_attention_max_group(int body, int dh) {
+  if (body == BODY_WGMMA) return flash_wgmma_max_group();
+  if (body == BODY_MMA_SYNC) return MMA_R;
   return dh > 128 ? Tile<256>::R : Tile<128>::R;
 }
 

@@ -11,14 +11,22 @@ fp32 scores, masked scores at the finite ``NEG_INF`` and the output in q's
 dtype.  The causal mask is ``q_pos >= k_pos`` from the start of the
 sequence: right for prefill (``Sq == Sk``), not for decode.
 
-:func:`flash_attention_gqa` is the entry point: CUDA tensors launch the
-kernel of ``csrc/flash_attention.cu`` (float or bf16, head dims up to 256;
-bf16 at dh 64 and 128 runs on the tensor cores, the rest on the fp32
-pipes; it raises if it cannot launch), CPU tensors run
-:func:`flash_attention_plain`.  Both take
-``Sq % block_q == 0 == Sk % block_k`` as the TPU kernel does (``ops.py``
-pads); the blocks shape the plain version's tiles, while the CUDA kernel
-picks its own.  :data:`LAUNCHES` counts kernel launches and
+:func:`flash_attention_gqa` is the entry point: CUDA tensors launch a
+CUDA body (float or bf16, head dims up to 256; it raises if it cannot
+launch, and never falls back), CPU tensors run
+:func:`flash_attention_plain`.  :func:`select_body` names the body:
+
+- ``"wgmma"`` (``csrc/flash_wgmma.cu``): TMA-fed, warp-specialised wgmma;
+  bf16 at dh 64 and 128 on 16-byte aligned bases, the model path;
+- ``"mma_sync"`` (``csrc/flash_attention.cu``, ``flash_mma_kernel``): the
+  same inputs on ``mma.sync``, kept as the yardstick the wgmma body is
+  timed against; only an explicit ``body="mma_sync"`` runs it;
+- ``"fp32_pipes"`` (``flash_kernel``): fp32, other head dims, unaligned
+  bases.
+
+All take ``Sq % block_q == 0 == Sk % block_k`` as the TPU kernel does
+(``ops.py`` pads); the blocks shape the plain version's tiles, while the
+CUDA bodies pick their own.  :data:`LAUNCHES` counts kernel launches and
 :data:`PATH_LAUNCHES` the body each of them ran.
 """
 from __future__ import annotations
@@ -29,17 +37,36 @@ import torch
 
 NEG_INF = -1e30
 
+# the CUDA bodies, by their codes in flash_attention_launch
+BODIES = {"fp32_pipes": 0, "mma_sync": 1, "wgmma": 2}
 # CUDA kernel launches; the plain version does not count.
 LAUNCHES = {"flash_attention": 0}
-# the same launches by the kernel body that ran: flash_mma_kernel on the
-# tensor cores or flash_kernel on the fp32 pipes
-PATH_LAUNCHES = {"tensor_cores": 0, "fp32_pipes": 0}
+# the same launches by the body that ran
+PATH_LAUNCHES = {"wgmma": 0, "mma_sync": 0, "fp32_pipes": 0}
 
 
 def reset_launches() -> None:
     for counts in (LAUNCHES, PATH_LAUNCHES):
         for key in counts:
             counts[key] = 0
+
+
+def select_body(dtype, dh: int, aligned: bool, body=None) -> str:
+    """The CUDA body for inputs of ``dtype`` at head dim ``dh`` whose bases
+    are all 16-byte aligned (``aligned``): ``body`` if it can take them
+    (else ``ValueError``), or by default ``"wgmma"`` for bf16 at dh 64 and
+    128 on aligned bases and ``"fp32_pipes"`` for everything else."""
+    tensor_cores = dtype == torch.bfloat16 and dh in (64, 128) and aligned
+    if body is None:
+        return "wgmma" if tensor_cores else "fp32_pipes"
+    if body not in BODIES:
+        raise ValueError(f"unknown flash-attention body {body!r}; the "
+                         f"bodies are {', '.join(BODIES)}")
+    if body != "fp32_pipes" and not tensor_cores:
+        raise ValueError(f"the {body} body takes bfloat16 at head dims 64 "
+                         f"and 128 on 16-byte aligned bases, got {dtype} at "
+                         f"dh {dh}{'' if aligned else ', unaligned'}")
+    return body
 
 
 def _check(q, k, v, block_q: int, block_k: int):
@@ -106,14 +133,13 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
-                         block_q: int = 512, block_k: int = 512,
-                         fp32_pipes: bool = False):
-    """Launch the CUDA kernel on the current stream (no synchronisation);
-    same arguments and result as :func:`flash_attention_plain`.
-    ``fp32_pipes`` runs the fp32-pipe body where the tensor-core one would
-    apply, to hold the two against each other."""
-    import ctypes
-
+                         block_q: int = 512, block_k: int = 512, body=None,
+                         drop_key_tile=None):
+    """Launch a CUDA body on the current stream (no synchronisation); same
+    arguments and result as :func:`flash_attention_plain`.  ``body`` names
+    the body (:func:`select_body`; ``None`` picks it).  ``drop_key_tile``
+    (wgmma only) leaves that 128-key tile out: a planted fault for the
+    control of the checks, ``None`` in every real call."""
     from repro_torch.kernels.flash_attention import build
 
     _check(q, k, v, block_q, block_k)
@@ -129,29 +155,33 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     if dh > 256:
         raise ValueError(f"the CUDA kernel takes head dims up to 256, got "
                          f"{dh}")
-    lib = build.load()
-    if H // KV > lib.flash_attention_max_group(dh):
-        raise ValueError(f"the CUDA kernel takes at most "
-                         f"{lib.flash_attention_max_group(dh)} query heads "
-                         f"per KV head at dh {dh}, got {H // KV}")
     q, k, v = (t.contiguous() for t in (q, k, v))
     o = torch.empty_like(q)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, o))
+    body = select_body(q.dtype, dh, aligned, body)
+    if drop_key_tile is not None and body != "wgmma":
+        raise ValueError(f"drop_key_tile is a fault of the wgmma body, not "
+                         f"of {body}")
+    lib = build.load()
+    max_group = lib.flash_attention_max_group(BODIES[body], dh)
+    if H // KV > max_group:
+        raise ValueError(f"the {body} body takes at most {max_group} query "
+                         f"heads per KV head at dh {dh}, got {H // KV}")
     if o.numel() == 0:
         return o
-    tensor_cores = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq,
             Sk, H, KV, dh, dtypes[q.dtype], int(causal),
-            1.0 / math.sqrt(dh), int(fp32_pipes), ctypes.byref(tensor_cores),
-            stream)
+            1.0 / math.sqrt(dh), BODIES[body],
+            -1 if drop_key_tile is None else int(drop_key_tile), stream)
     if rc != 0:
-        raise RuntimeError(f"flash-attention kernel launch failed: "
+        raise RuntimeError(f"flash-attention launch ({body}) failed: "
                            f"{lib.flash_attention_error_string(rc).decode()}"
                            f" ({rc})")
     LAUNCHES["flash_attention"] += 1
-    PATH_LAUNCHES["tensor_cores" if tensor_cores.value else "fp32_pipes"] += 1
+    PATH_LAUNCHES[body] += 1
     return o
 
 

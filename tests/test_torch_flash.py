@@ -174,3 +174,37 @@ def test_entry_points_default_to_the_card(monkeypatch):
     before = dict(t_kernel.LAUNCHES)
     t_kernel.flash_attention_gqa(q, k, v, block_q=128, block_k=128)
     assert t_kernel.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype,dh,aligned,body,want", [
+    ("bfloat16", 64, True, None, "wgmma"),
+    ("bfloat16", 128, True, None, "wgmma"),
+    ("float32", 128, True, None, "fp32_pipes"),
+    ("bfloat16", 80, True, None, "fp32_pipes"),
+    ("bfloat16", 128, False, None, "fp32_pipes"),
+    ("bfloat16", 64, True, "mma_sync", "mma_sync"),
+    ("bfloat16", 128, True, "fp32_pipes", "fp32_pipes"),
+    ("float32", 80, False, "fp32_pipes", "fp32_pipes"),
+], ids=["bf16-64", "bf16-128", "fp32", "dh80", "unaligned", "mma_sync",
+        "fp32_pipes-bf16", "fp32_pipes-fp32"])
+def test_select_body(dtype, dh, aligned, body, want):
+    """The model path (bf16 at dh 64 / 128 on aligned bases) takes the wgmma
+    body by default, everything else the fp32 pipes; a named body that can
+    take the inputs is kept."""
+    assert t_kernel.select_body(getattr(torch, dtype), dh, aligned,
+                                body) == want
+
+
+@pytest.mark.parametrize("dtype,dh,aligned,body,match", [
+    ("float32", 128, True, "wgmma", "takes bfloat16"),
+    ("bfloat16", 80, True, "wgmma", "takes bfloat16"),
+    ("bfloat16", 128, False, "wgmma", "unaligned"),
+    ("float32", 64, True, "mma_sync", "takes bfloat16"),
+    ("bfloat16", 128, True, "tensor_cores", "unknown"),
+], ids=["wgmma-fp32", "wgmma-dh80", "wgmma-unaligned", "mma_sync-fp32",
+        "unknown"])
+def test_select_body_refuses(dtype, dh, aligned, body, match):
+    """A named body that cannot take the inputs raises: nothing falls back
+    to another body."""
+    with pytest.raises(ValueError, match=match):
+        t_kernel.select_body(getattr(torch, dtype), dh, aligned, body)

@@ -56,9 +56,9 @@ def cuda_device():
 @pytest.mark.gpu
 def test_cuda_flash_kernel_matches_plain(cuda_device, monkeypatch):
     """MHA, GQA and MQA, causal and not, fp32 and bf16, dh 64, 128 (bf16:
-    the tensor-core path) and 80 (a width the fp32 pipes pad), ragged
-    lengths; each call counts one launch under the body it ran, and the
-    fp32-pipe body is also run where the tensor-core one applies."""
+    the wgmma body by default) and 80 (a width the fp32 pipes pad), ragged
+    lengths; each call counts one launch under the body it ran, and where
+    the wgmma body applies the mma.sync and fp32-pipe bodies run too."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     for H, KV in ((8, 8), (16, 8), (16, 1)):
         for dtype in ("float32", "bfloat16"):
@@ -68,23 +68,90 @@ def test_cuda_flash_kernel_matches_plain(cuda_device, monkeypatch):
                                    cuda_device)
                     qp, kp, vp, bq, bk = t_ops.pad_blocks(q, k, v,
                                                           causal=causal)
-                    mma = dtype == "bfloat16" and dh in (64, 128)
+                    tensor_cores = dtype == "bfloat16" and dh in (64, 128)
+                    bodies = ([None, "mma_sync", "fp32_pipes"]
+                              if tensor_cores else [None])
                     before = t_kernel.LAUNCHES["flash_attention"]
                     paths = dict(t_kernel.PATH_LAUNCHES)
-                    got = t_kernel.flash_attention_cuda(
-                        qp, kp, vp, causal=causal, block_q=bq, block_k=bk)
-                    fma = t_kernel.flash_attention_cuda(
+                    outs = [t_kernel.flash_attention_cuda(
                         qp, kp, vp, causal=causal, block_q=bq, block_k=bk,
-                        fp32_pipes=True)
+                        body=body) for body in bodies]
                     torch.cuda.synchronize()
-                    assert t_kernel.LAUNCHES["flash_attention"] == before + 2
+                    assert (t_kernel.LAUNCHES["flash_attention"]
+                            == before + len(bodies))
                     assert {key: t_kernel.PATH_LAUNCHES[key] - n
                             for key, n in paths.items()} == {
-                        "tensor_cores": int(mma), "fp32_pipes": 2 - mma}
+                        "wgmma": int(tensor_cores),
+                        "mma_sync": int(tensor_cores), "fp32_pipes": 1}
                     want = t_kernel.flash_attention_plain(
                         qp, kp, vp, causal=causal, block_q=bq, block_k=bk)
-                    _assert_close(got[:, :S], want[:, :S])
-                    _assert_close(fma[:, :S], want[:, :S])
+                    for got in outs:
+                        _assert_close(got[:, :S], want[:, :S])
+
+
+# (H, KV): G 1, 2, 8 (qwen3-32b's 64/8) and 48 (granite-34b's 48/1: 96 live
+# rows of the wgmma body's 128)
+WGMMA_HEADS = [(8, 8), (16, 8), (64, 8), (48, 1)]
+# (Sq, Sk, causal): a ragged q tile; few queries over many keys, both ways;
+# a full square
+WGMMA_SHAPES = [(250, 250, True), (128, 1024, False), (128, 1024, True),
+                (256, 256, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("H,KV", WGMMA_HEADS,
+                         ids=[f"G{h // kv}" for h, kv in WGMMA_HEADS])
+@pytest.mark.parametrize("Sq,Sk,causal", WGMMA_SHAPES,
+                         ids=["ragged", "keys", "keys-causal", "square"])
+def test_wgmma_body_matches_plain(cuda_device, dh, H, KV, Sq, Sk, causal):
+    """The wgmma body (the model path) against the plain version; the call
+    counts one launch, under "wgmma"."""
+    rng = np.random.default_rng(Sq + Sk + H + dh)
+    f = lambda *s: torch.from_numpy(
+        (rng.standard_normal(s) * 0.5).astype(np.float32)).to(
+            device=cuda_device, dtype=torch.bfloat16)
+    q, k, v = f(2, Sq, H, dh), f(2, Sk, KV, dh), f(2, Sk, KV, dh)
+    qp, kp, vp, bq, bk = t_ops.pad_blocks(q, k, v, causal=causal)
+    paths = dict(t_kernel.PATH_LAUNCHES)
+    got = t_kernel.flash_attention_cuda(qp, kp, vp, causal=causal,
+                                        block_q=bq, block_k=bk, body="wgmma")
+    torch.cuda.synchronize()
+    assert {key: t_kernel.PATH_LAUNCHES[key] - n
+            for key, n in paths.items()} == {"wgmma": 1, "mma_sync": 0,
+                                             "fp32_pipes": 0}
+    want = t_kernel.flash_attention_plain(qp, kp, vp, causal=causal,
+                                          block_q=bq, block_k=bk)
+    _assert_close(got[:, :Sq], want[:, :Sq])
+
+
+@pytest.mark.gpu
+def test_wgmma_dropped_tile_fails_the_check(cuda_device):
+    """The check catches a fault in the wgmma body: with its 128-key tile 4
+    left out, the output leaves the bf16 limits; without, it stays."""
+    q, k, v = _qkv(1, 1024, 16, 8, 128, "bfloat16", 5, cuda_device)
+    want = t_kernel.flash_attention_plain(q, k, v, causal=True)
+    _assert_close(t_kernel.flash_attention_cuda(q, k, v, causal=True), want)
+    with pytest.raises(AssertionError):
+        _assert_close(t_kernel.flash_attention_cuda(
+            q, k, v, causal=True, drop_key_tile=4), want)
+
+
+@pytest.mark.gpu
+def test_bodies_that_cannot_take_the_inputs_raise(cuda_device):
+    """A named body that cannot take the inputs raises; nothing falls
+    back."""
+    q, k, v = _qkv(1, 128, 4, 2, 128, "float32", 7, cuda_device)
+    paths = dict(t_kernel.PATH_LAUNCHES)
+    blocks = dict(block_q=128, block_k=128)
+    for body in ("wgmma", "mma_sync"):
+        with pytest.raises(ValueError, match="takes bfloat16"):
+            t_kernel.flash_attention_cuda(q, k, v, body=body, **blocks)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    with pytest.raises(ValueError, match="drop_key_tile"):
+        t_kernel.flash_attention_cuda(qb, kb, vb, body="mma_sync",
+                                      drop_key_tile=0, **blocks)
+    assert t_kernel.PATH_LAUNCHES == paths
 
 
 @pytest.mark.gpu
