@@ -10,7 +10,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    ``csrc/wfa_meet.cu``, ``kernels/flash_attention/csrc/
    flash_attention.cu`` and ``flash_wgmma.cu``, one process per source,
    all started together, and prints each kernel's ptxas registers and
-   spills (the wgmma flash body must not spill);
+   spills (each meet instantiation's too; the wgmma flash body must not
+   spill);
 3. kernel vs plain — the CUDA WFA kernel against its plain PyTorch version
    on the card, over {GapAffine(4,6,2), GapLinear, Edit} x {exact,
    AdaptiveBand, ZDrop} x {score, trace}, on one wave of 4,096 pairs of
@@ -21,8 +22,11 @@ Phases (each raises on failure, and the script then exits non-zero):
    over {GapAffine(4,6,2), GapLinear, Edit} x {exact, AdaptiveBand(10,4),
    ZDrop(8)} x boundary states ((M,M); (I,D) and (D,M) for affine) on the
    same 4,096 pairs, all eight outputs equal; then one meet wave at the
-   BiWFA path's root shape (1,024 pairs of 10 kb at E = 3%), compared and
-   timed;
+   BiWFA path's root shape (1,024 pairs of 10 kb at E = 3%): its first
+   and last 8 pairs compared, the wave and its first 8 pairs timed, the
+   pairs' meet steps printed and the bound taken as the larger of the
+   bytes and the integer operations of the cells the recurrence reaches
+   (``kernel.meet_band``) up to each pair's meet;
 5. main path — ``repro_torch.launch.align.main`` with ``--backend kernel``
    on 262,144 pairs (``--mode both --verify 512``) and with ``--output
    cigar`` on 65,536 pairs; the kernel's launch counts must rise; then the
@@ -32,7 +36,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    score and trace kernels must each launch, no meet may go unmet or fall
    back, the scores must equal an ``--output score`` run of the same
    pairs, and block 0 of every meet wave the path launched must equal the
-   plain version on the same rows;
+   plain version on the same rows; the port's tracer is on for this run
+   and the blocking run's wall clock is printed split by span (meet and
+   other kernels, host scatter, leaf traceback, split, stitch);
 7. band kernel vs plain — the CUDA band kernel (the compacting band,
    ``band_cap``) against its plain version over {GapAffine(4,6,2),
    GapLinear, Edit} x {AdaptiveBand(), ZDrop(), AdaptiveBand(10,4),
@@ -115,6 +121,9 @@ BAND_PACKED_PAIRS = 64  # packed CIGARs at 10 kb: 309 words x 64 x 4,992 x 3
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 INT32_OPS_PER_S = 16.7e12      # 132 SMs x 64 INT32 lanes x 1.98 GHz
 BF16_FLOPS_PER_S = 989e12      # H100 SXM tensor cores, dense bf16
+# integer operations of one front's cell of the meet recurrence (the count
+# in the header note of csrc/wfa_meet.cu)
+MEET_OPS_PER_CELL = 18
 # flash attention: the tolerances of tests/test_kernel_flash.py (max |err|)
 FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 # In bf16 the absolute 2e-2 is about the size of the outputs at S 2,048
@@ -397,14 +406,47 @@ def phase_meet_grid(K, S, eng_for, P, plen, T, tlen, dev):
     return worst
 
 
+def meet_steps(outs, s_max):
+    """Each pair's meet step from the meet outputs: the larger of the two
+    costs it met at (the test at step s reads the forward or reverse row at
+    s and the other at starget - s), s_max for a pair that did not meet."""
+    import numpy as np
+    score, a, b = (outs[i][:, 0].cpu().numpy() for i in (0, 3, 4))
+    return np.where(score >= 0, np.maximum(a, b), s_max)
+
+
+def meet_bound(K, pen, outs, s_max, k_pad, plen, tlen):
+    """The least time the card could take for one meet wave -> (ms, "bytes"
+    | "operations", bytes, operations, band cells).  Bytes: each int32
+    character of the forward and reversed sequences up to its length,
+    plen / tlen / starget read once, the eight outputs written once.
+    Operations: MEET_OPS_PER_CELL for each cell that the recurrence can
+    reach (``kernel.meet_band``), forward and reverse, at every step up to
+    each pair's meet step."""
+    import numpy as np
+    n = len(plen)
+    band = K.meet_band(pen, s_max, k_pad)[:, :, 0]          # M: [S+1, 2, 2]
+    width = np.clip(band[..., 1] - band[..., 0] + 1, 0, None).sum(axis=1)
+    cum = np.cumsum(width.astype(np.int64))
+    cells = int(cum[meet_steps(outs, s_max)[:n]].sum())
+    lens = plen.astype(np.int64) + tlen
+    nbytes = 2 * 4 * int(lens.sum()) + 3 * 4 * n + 8 * 4 * n
+    ops = cells * MEET_OPS_PER_CELL
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes, ops,
+            cells, bytes_ms, ops_ms)
+
+
 def phase_meet_root(K, S, dev):
     """Phase 4b: one meet wave at the BiWFA path's root shape -> timing
     record.  starget comes from the score kernel at pass-1 bounds; the
-    plain version runs on the first ROOT_PLAIN_PAIRS pairs (blocks are
-    independent, so those rows of the kernel's full run must equal it)."""
+    plain version runs on the first and on the last ROOT_PLAIN_PAIRS pairs
+    (blocks are independent, so those rows of the kernel's full run must
+    equal it)."""
     import numpy as np
     from repro_torch.core.engine import AlignmentEngine
-    from repro_torch.core.wavefront import meet_window
     from repro_torch.data.reads import ReadPairSpec, generate_pairs
     P, plen, T, tlen = generate_pairs(ReadPairSpec(
         n_pairs=LONG_PAIRS, read_len=LONG_LEN, edit_frac=LONG_EDIT, seed=0))
@@ -425,45 +467,40 @@ def phase_meet_root(K, S, dev):
     got = K.wfa_meet_cuda(*args, **kw)
     torch_sync()
     n = ROOT_PLAIN_PAIRS
-    t0 = time.perf_counter()
-    want = K.wfa_meet_plain(*(a[:n] for a in args), **kw)
-    torch_sync()
-    p_ms = (time.perf_counter() - t0) * 1e3
-    err = max_abs_err(tuple(g[:n] for g in got), want)
-    if err:
-        raise AssertionError(f"meet kernel != plain at the root shape: "
-                             f"max|err|={err}")
+    err, p_ms = 0, []
+    for rows in (slice(0, n), slice(LONG_PAIRS - n, LONG_PAIRS)):
+        t0 = time.perf_counter()
+        want = K.wfa_meet_plain(*(a[rows] for a in args), **kw)
+        torch_sync()
+        p_ms.append((time.perf_counter() - t0) * 1e3)
+        e = max_abs_err(tuple(g[rows] for g in got), want)
+        if e:
+            raise AssertionError(f"meet kernel != plain at the root shape, "
+                                 f"rows {rows.start}-{rows.stop - 1}: "
+                                 f"max|err|={e}")
+        err = max(err, e)
     k_ms = cuda_ms(lambda: K.wfa_meet_cuda(*args, **kw), 3)
     k_ms_n = cuda_ms(lambda: K.wfa_meet_cuda(*(a[:n] for a in args), **kw),
                      3)
-    # least bytes: each int32 character of the forward and reversed
-    # sequences up to its length, plen / tlen / starget read once, the
-    # eight outputs written once; least work: one compare per aligned
-    # column, min(plen, tlen) per pair
-    lens = plen.astype(np.int64) + tlen
-    nbytes = 2 * 4 * int(lens.sum()) + 3 * 4 * LONG_PAIRS \
-        + 8 * 4 * LONG_PAIRS
-    ops = int(np.minimum(plen, tlen).astype(np.int64).sum())
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    bound, bound_by, nbytes, ops, cells, bytes_ms, ops_ms = meet_bound(
+        K, pen, got, s_max, k_pad, plen, tlen)
     met = int((got[0] >= 0).sum())
-    steps = int(got[1].max())
-    wd = meet_window(pen)
+    ms_steps = meet_steps(got, s_max)
     log(f"[meet] root wave: {LONG_PAIRS} pairs of {LONG_LEN} bp, cost "
-        f"{int(st.min())}-{int(st.max())}, s_max={s_max} k_pad={k_pad}, "
-        f"scratch {wd}x8x{k_pad} x7 rings x "
-        f"{LONG_PAIRS // 8} blocks = "
-        f"{7 * wd * 8 * k_pad * 4 * LONG_PAIRS // 8:,} "
-        f"bytes; met {met}/{LONG_PAIRS}, exit step <= {steps}")
+        f"{int(st.min())}-{int(st.max())}, s_max={s_max} k_pad={k_pad}; "
+        f"met {met}/{LONG_PAIRS}, meet steps min {int(ms_steps.min())} "
+        f"median {float(np.median(ms_steps)):g} max {int(ms_steps.max())}, "
+        f"block exit step <= {int(got[1].max())}")
     log(f"[meet] root wave: kernel {k_ms:.3f} ms ({k_ms_n:.3f} ms on the "
-        f"first {n} pairs), plain {p_ms:.1f} ms on the first {n} pairs "
-        f"(equal), bound {max(bytes_ms, ops_ms):.5f} ms "
-        f"({'bytes' if bytes_ms >= ops_ms else 'operations'}: {nbytes} "
-        f"bytes, {ops} compares)")
-    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+        f"first {n} pairs), plain {p_ms[0]:.1f} / {p_ms[1]:.1f} ms on the "
+        f"first / last {n} pairs (equal); bound {bound:.5f} ms "
+        f"({bound_by}): bytes {bytes_ms:.5f} ms ({nbytes} bytes), "
+        f"operations {ops_ms:.5f} ms ({cells:,} band cells x "
+        f"{MEET_OPS_PER_CELL} = {ops:,} integer operations)")
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms[0],
                 ms_on_plain_inputs=k_ms_n, plain_pairs=n,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bound_ms=bound, bound_by=bound_by, bytes_bound_ms=bytes_ms,
+                ops_bound_ms=ops_ms, band_cells=cells,
                 s_max=s_max, k_pad=k_pad, pass1=(s1, k1))
 
 
@@ -487,6 +524,57 @@ def check_path_meet_waves(K, waves):
     return worst
 
 
+def wall_split(events, run="align.sync"):
+    """Where the wall clock of one traced launcher run went -> dict of
+    seconds.  Each span's own time is its duration less that of the spans
+    it encloses on its thread; the blocking session's ``wave.scatter``
+    spans carry each wave's kernel and copy-out time (CUDA events) and the
+    output it served, so the kernel splits into meet waves (``bidir_meet``)
+    and the rest, and the host part of a scatter is what remains."""
+    spans = [e for e in events if e.get("ph") == "X"]
+    top = [e for e in spans if e["name"] == run]
+    if len(top) != 1:
+        raise AssertionError(f"{len(top)} '{run}' spans in the trace")
+    t0, t1 = top[0]["ts"], top[0]["ts"] + top[0]["dur"]
+    inner = sorted((e for e in spans if e is not top[0]
+                    and t0 <= e["ts"] and e["ts"] + e["dur"] <= t1),
+                   key=lambda e: (e["tid"], e["ts"], -e["dur"]))
+    own, stack = {}, []
+    for e in inner:
+        while stack and (stack[-1]["tid"] != e["tid"] or
+                         stack[-1]["ts"] + stack[-1]["dur"] <= e["ts"]):
+            stack.pop()
+        if stack:
+            own[id(stack[-1])] -= e["dur"]
+        own[id(e)] = e["dur"]
+        stack.append(e)
+    by_name, kernel, copy_out = {}, {}, 0.0
+    for e in inner:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + own[id(e)] / 1e6
+        a = e.get("args") or {}
+        if e["name"] == "wave.scatter" and "t_kernel" in a:
+            key = a["output"]
+            kernel[key] = kernel.get(key, 0.0) + a["t_kernel"]
+            copy_out += a["t_copy_out"]
+    wall = top[0]["dur"] / 1e6
+    out = {"wall": wall,
+           "meet kernel": kernel.pop("bidir_meet", 0.0),
+           "other kernels": sum(kernel.values()),
+           "copy out": copy_out,
+           "host scatter": by_name.pop("wave.scatter", 0.0)
+           - sum(kernel.values()) - copy_out}
+    out["host scatter"] -= out["meet kernel"]
+    for name, label in (("wave.traceback", "host traceback"),
+                        ("bidir.split", "split"),
+                        ("bidir.stitch", "stitch"),
+                        ("meet.check_codes", "meet code check")):
+        out[label] = by_name.pop(name, 0.0)
+    out["other spans"] = sum(by_name.values())
+    out["remainder"] = wall - sum(v for k, v in out.items() if k != "wall")
+    out["kernel by output"] = dict(kernel, bidir_meet=out["meet kernel"])
+    return out
+
+
 def phase_bidir_path(K, root):
     """Phase 6: the BiWFA CIGAR path through the launcher, then the same
     pairs' --output score run -> (launches, summary, packed bytes, meet
@@ -495,6 +583,7 @@ def phase_bidir_path(K, root):
     import numpy as np
     from repro_torch.core.wavefront import n_trace_words
     from repro_torch.launch import align
+    from repro_torch.obs import trace
 
     common = ["--backend", "kernel", "--pairs", str(LONG_PAIRS),
               "--read-len", str(LONG_LEN), "--edit-frac", str(LONG_EDIT),
@@ -512,11 +601,17 @@ def phase_bidir_path(K, root):
     K.reset_launches()
     bidir = {}
     t0 = time.perf_counter()
+    trace.reset()
+    trace.enable()
     try:
         rc = align.main([*common, "--output", "cigar", "--trace", "bidir",
                          "--mode", "both", "--verify", "4"], bidir)
     finally:
         K.wfa_meet_cuda = launch
+        trace.disable()
+    split = wall_split(trace.events())
+    stream_split = wall_split(trace.events(), run="align.stream")
+    trace.reset()
     launches = dict(K.LAUNCHES)
     if rc != 0:
         raise AssertionError("launcher failed on the BiWFA path")
@@ -551,7 +646,16 @@ def phase_bidir_path(K, root):
     log(f"[bidir] scores equal the --output score run on {LONG_PAIRS} "
         f"pairs; every CIGAR re-scores exactly and consumes both sequences")
     err = check_path_meet_waves(K, waves)
-    return launches, bidir, packed, err
+    log("[bidir] sync wall clock split (s; the tracer on): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in split.items() if k != "kernel by output")
+        + f"; kernel by wave output {split['kernel by output']}")
+    # the meet wrapper's byte check waits for the stream: what it holds the
+    # streamed run's host back
+    log(f"[bidir] meet code check (a reduction and a sync per meet launch): "
+        f"{split['meet code check']:.4f} s of the sync wall "
+        f"{split['wall']:.4f} s, {stream_split['meet code check']:.4f} s of "
+        f"the stream wall {stream_split['wall']:.4f} s")
+    return launches, bidir, packed, err, split
 
 
 def slice_block(outs, n):
@@ -1331,6 +1435,9 @@ def main() -> int:
             return name
         args = re.findall(r"L[bi](\d+)E", m.group(2))
         return f"{m.group(1)}<{','.join(args)}>"
+    meet_regs = [f"{short(n)} {r} registers, {sp} B spilled"
+                 for n, sp, r in entries if "wfa_meet_kernel" in n]
+    log("[build] ptxas (meet): " + "; ".join(meet_regs))
     spilled = [f"{short(n)} {sp} B" for n, sp, _ in entries if int(sp)]
     if spilled:
         log(f"[build] spill stores: {', '.join(spilled)}")
@@ -1370,7 +1477,8 @@ def main() -> int:
         f"{card}")
 
     # 6. the BiWFA path
-    b_launches, bidir, packed, path_meet_err = phase_bidir_path(K, root)
+    b_launches, bidir, packed, path_meet_err, split = phase_bidir_path(
+        K, root)
     for mode in ("sync", "stream"):
         r = bidir[mode]
         log(f"[bidir] {mode}: Total {r['total_pairs_per_s']:,.2f} pairs/s "
@@ -1432,6 +1540,11 @@ def main() -> int:
         "ms_on_plain_inputs": root["ms_on_plain_inputs"],
         "plain_pairs": root["plain_pairs"],
         "bound_ms": root["bound_ms"], "bound_by": root["bound_by"],
+        # both bounds: the bytes moved and the integer operations of the
+        # cells the recurrence reaches up to each pair's meet
+        "bytes_bound_ms": root["bytes_bound_ms"],
+        "ops_bound_ms": root["ops_bound_ms"],
+        "registers": meet_regs,
         "library_ms": None})
     for name, key, err in (("wfa_band_score", "score_band", band_worst[0]),
                            ("wfa_band_trace", "trace_band", band_worst[1])):

@@ -444,6 +444,9 @@ class AlignmentSession:
                     for st in (ticket.stats, self.stats):
                         st.t_scatter += t_scat
                         st.t_kernel += t_kern
+                    if obs_trace.enabled():
+                        sp.set(output=ticket.output, t_kernel=t_kern,
+                               t_copy_out=t_gather)
                 else:
                     # async: pack + enqueue cost only; the copy and kernel
                     # are both still in flight behind this wave

@@ -18,16 +18,14 @@ import argparse
 import json
 import os
 import re
-import shutil
 import subprocess
 
 import torch
 
 from repro_torch.kernels import build as kbuild
+from repro_torch.kernels import variants as V
 from repro_torch.kernels.flash_attention import build as fbuild
 from repro_torch.kernels.flash_attention import kernel as FK
-
-HERE = os.path.dirname(os.path.abspath(__file__))
 
 _V_LOAD = [("""        mbar_expect_tx(full_v + 8 * s, C::KV_BYTES);
 #pragma unroll
@@ -74,36 +72,15 @@ VARIANTS = {
 }
 
 
-def _library(name: str, subs) -> kbuild.Library:
-    pkg = os.path.join(fbuild.LIB.build_dir(), "variants", name)
-    os.makedirs(os.path.join(pkg, "csrc"), exist_ok=True)
-    src = os.path.join(HERE, "csrc")
-    shutil.copy(os.path.join(src, "flash_attention.cu"),
-                os.path.join(pkg, "csrc"))
-    with open(os.path.join(src, "flash_wgmma.cu")) as f:
-        text = f.read()
-    for old, new in subs:
-        if old not in text:
-            raise ValueError(f"variant {name}: {old!r} is not in the source")
-        text = text.replace(old, new)
-    with open(os.path.join(pkg, "csrc", "flash_wgmma.cu"), "w") as f:
-        f.write(text)
-    return kbuild.Library(f"flash_{name}", pkg,
-                          ("flash_attention.cu", "flash_wgmma.cu"),
-                          fbuild._declare)
-
-
 def _ptxas(lib: kbuild.Library) -> dict:
     """ptxas and SASS facts of flash_wgmma_kernel<128>."""
     log = lib.info["log"]
-    m = re.search(r"Compiling entry function '\w*flash_wgmma_kernelILi128E\w*'"
-                  r".*?(\d+) bytes spill stores.*?Used (\d+) registers", log,
-                  re.S)
+    entry = V.ptxas_entry(log, "flash_wgmma_kernelILi128E")
     notes = sorted({f"{code}: {text}" for code, text in re.findall(
         r"\((C7\d+)\) Potential Performance Loss: (.*?) in the function "
         r"'\w*flash_wgmma_kernelILi128", log)})
-    facts = dict(entry_registers=int(m.group(2)), spill_bytes=int(m.group(1)),
-                 ptxas_notes=notes)
+    facts = dict(entry_registers=entry["registers"],
+                 spill_bytes=entry["spill_bytes"], ptxas_notes=notes)
     cuobjdump = os.path.join(os.path.dirname(kbuild.nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib.info["path"]],
                           capture_output=True, text=True).stdout
@@ -119,28 +96,13 @@ def _ptxas(lib: kbuild.Library) -> dict:
     return facts
 
 
-def _cuda_ms(fn, reps: int = 30) -> float:
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="write the results as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("variants: no CUDA device; this runs on a card")
-    libs = {name: _library(name, subs)
-            for name, (_, subs) in VARIANTS.items()}
-    kbuild.build_all(list(libs.values()))
+    libs = V.build_variants(fbuild.LIB, "flash_wgmma.cu", VARIANTS)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2048)
     rnd = lambda *s: (torch.randn(s, generator=gen, device=dev)
@@ -148,31 +110,19 @@ def main(argv=None) -> int:
     q, k, v = rnd(8, 2048, 16, 128), rnd(8, 2048, 8, 128), rnd(8, 2048, 8, 128)
     want = FK.flash_attention_plain(q, k, v, causal=True).float()
     run = lambda: FK.flash_attention_cuda(q, k, v, causal=True, body="wgmma")
-    load = fbuild.load
     results = {}
-    try:
-        for name, lib in libs.items():
-            lib.load()
-            results[name] = dict(_ptxas(lib), checked=VARIANTS[name][0],
-                                 ms=[])
-            if VARIANTS[name][0]:
-                fbuild.load = lib.load
+    for name, lib in libs.items():
+        results[name] = dict(_ptxas(lib), checked=VARIANTS[name][0])
+        if VARIANTS[name][0]:
+            with V.loaded_from(fbuild, lib):
                 err = float((run().float() - want).abs().max())
-                fbuild.load = load
-                results[name]["max_abs_err"] = err
-                if not err <= 2e-2:
-                    raise AssertionError(f"variant {name}: max |err| {err}")
-        order = list(libs)
-        for turn in (order, order[::-1], order):
-            for name in turn:
-                fbuild.load = libs[name].load
-                results[name]["ms"].append(_cuda_ms(run))
-                fbuild.load = load
-    finally:
-        fbuild.load = load
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
+            results[name]["max_abs_err"] = err
+            if not err <= 2e-2:
+                raise AssertionError(f"variant {name}: max |err| {err}")
+    for name, t in V.time_in_turns(libs, fbuild, {"ms": run},
+                                   reps=30).items():
+        results[name].update(t)
+    card = V.card()
     for name, r in results.items():
         print(f"{name:12s} {min(r['ms']):.4f} ms (turns "
               f"{', '.join(f'{t:.4f}' for t in r['ms'])}); entry "

@@ -28,9 +28,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.wfa_error_string.restype = ctypes.c_char_p
     lib.wfa_max_trace_cells.argtypes = []
     lib.wfa_max_trace_cells.restype = I
-    lib.wfa_meet_launch.argtypes = [P] * 16 + [I] * 16 + [P]
+    lib.wfa_meet_launch.argtypes = [P] * 17 + [I] * 17 + [P]
     lib.wfa_meet_launch.restype = I
-    lib.wfa_meet_scratch_ints.argtypes = [I] * 5
+    lib.wfa_meet_scratch_ints.argtypes = [I] * 8
     lib.wfa_meet_scratch_ints.restype = ctypes.c_longlong
 
 

@@ -22,17 +22,24 @@ kernels compute:
 ``csrc/wfa.cu`` (and raises if it cannot), a CPU tensor runs
 :func:`wfa_plain`.  :func:`wfa_meet_kernel` does the same for the meet
 search (``csrc/wfa_meet.cu`` / :func:`wfa_meet_plain`): forward and reverse
-fronts over ``[Wd, BP, k_pad]`` rings (seven for affine models, three for
-linear), outputs eight ``[B, 1]`` int32 arrays (score, steps, state, a, b,
-k, h, safe).  :data:`LAUNCHES` counts kernel launches per variant.
+fronts, outputs eight ``[B, 1]`` int32 arrays (score, steps, state, a, b,
+k, h, safe).  The plain version steps each block in lockstep over
+``[Wd, B, k_pad]`` rings; the kernel runs one pair per CTA over the lanes
+of :func:`meet_band`, tests only in :func:`meet_test_steps`, and
+:func:`block_steps` turns its per-pair exit steps into the per-block
+``steps``.  :data:`LAUNCHES` counts kernel launches per variant.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from repro_torch.core import scoring
 from repro_torch.core import wavefront as wf
 from repro_torch.core.scoring import AdaptiveBand, ZDrop
+from repro_torch.obs import trace as obs_trace
 
 # Kernel launches per variant ("score" / "trace" at full width,
 # "score_band" / "trace_band" on the compacting band, "meet"); the plain
@@ -284,6 +291,94 @@ def _check_meet(pattern, text, pat_rev, txt_rev, plen, tlen, starget,
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
 
 
+_EMPTY = (1 << 30, -1)   # (lo, hi) of a range that holds no lane
+
+
+@functools.lru_cache(maxsize=64)
+def _meet_band(x, o, e, affine, s_max, k_pad, seeds):
+    out = np.empty((s_max + 1, 2, 3, 2), np.int32)
+    clip = lambda lo, hi: ((max(lo, 0), min(hi, k_pad - 1))
+                           if max(lo, 0) <= min(hi, k_pad - 1) else _EMPTY)
+    hull = lambda *rs: clip(min(r[0] for r in rs), max(r[1] for r in rs))
+    shift = lambda r, d: _EMPTY if r[0] > r[1] else clip(r[0] + d, r[1] + d)
+    kc = k_pad // 2
+    for f, seed in enumerate(seeds):
+        rows = out[:, f]
+        back = lambda s, d, ring: (tuple(rows[s - d, ring]) if s >= d
+                                   else _EMPTY)
+        rows[0, 0] = (kc, kc)
+        rows[0, 1] = (kc, kc) if seed == "I" else _EMPTY
+        rows[0, 2] = (kc, kc) if seed == "D" else _EMPTY
+        for s in range(1, s_max + 1):
+            if affine:
+                m_oe = back(s, o + e, 0)
+                ri = shift(hull(m_oe, back(s, e, 1)), 1)
+                rd = shift(hull(m_oe, back(s, e, 2)), -1)
+                rm = hull(back(s, x, 0), ri, rd)
+            else:
+                m_e = back(s, e, 0)
+                ri = rd = _EMPTY
+                rm = hull(back(s, x, 0), shift(m_e, 1), shift(m_e, -1))
+            rows[s] = (rm, ri, rd)
+    out.flags.writeable = False
+    return out
+
+
+def meet_band(pen, s_max: int, k_pad: int, begin_state: str = "M",
+              end_state: str = "M"):
+    """The lanes the meet search's recurrence can reach -> ``[s_max + 1, 2,
+    3, 2]`` int32 numpy: for each score step, front (forward, reverse) and
+    ring (M, I, D), the inclusive lane range ``(lo, hi)`` outside which the
+    ring's row is ``NEG`` (``lo > hi``: no lane).
+
+    Lane ``kc = k_pad // 2`` holds M at s = 0, and I or D there when the
+    front's boundary state (``begin_state`` forward, ``end_state`` reverse)
+    seeds it.  Then I at s reaches one lane above M at ``s - (o+e)`` and I
+    at ``s - e``, D one lane below (with D), and M the union of M at
+    ``s - x`` and both gaps; a linear model keeps M only, from M at ``s -
+    x`` and one lane either side of M at ``s - e``.  Ranges are clipped to
+    ``[0, k_pad)``.  Neither the data nor a heuristic's pruning can widen
+    them, so the rule bounds every pair and heuristic; the kernel computes,
+    stores and reads only inside the M range of each front."""
+    model = scoring.as_model(pen)
+    return _meet_band(model.x, model.o, model.e, model.kind == "affine",
+                      int(s_max), int(k_pad), (begin_state, end_state))
+
+
+@functools.lru_cache(maxsize=64)
+def _meet_band_on(device, pen, s_max, k_pad, begin_state, end_state):
+    """The M ranges of :func:`meet_band` as the ``[s_max + 1, 2, 2]``
+    table the meet kernel reads, copied to ``device`` once per shape."""
+    return torch.from_numpy(np.ascontiguousarray(meet_band(
+        pen, s_max, k_pad, begin_state, end_state)[:, :, 0, :])).to(device)
+
+
+def meet_test_steps(starget, pen, end_state: str = "M"):
+    """-> (first, stop): per pair, the first score step whose meet test can
+    hold a lane, and the step from which none can.
+
+    At step s the test reads the forward rows at s and at ``st2 - s`` (M
+    classes) or ``st2 + o - s`` (gap classes), and the reverse rows at the
+    other cost, with ``st2 = starget`` less ``o`` under an I or D end state;
+    a row is visible only at costs in ``(s - Wd, s]``.  So nothing can hold
+    while ``2s < st2``, and nothing from ``2s >= st2 + o + Wd`` on."""
+    model = scoring.as_model(pen)
+    o = model.o if model.kind == "affine" else 0
+    st2 = starget.to(torch.int64) - (o if end_state != "M" else 0)
+    first = torch.clamp((st2 + 1).div(2, rounding_mode="floor"), min=1)
+    stop = (st2 + o + wf.meet_window(model) + 1).div(
+        2, rounding_mode="floor")
+    return first, stop
+
+
+def block_steps(exit_steps, block_pairs: int):
+    """Per-pair exit steps ``[B, 1]`` -> each block's exit step on its rows:
+    the max over its ``block_pairs`` rows (a pair's exit step is its meet
+    step + 1, 1 for a padded row, ``s_max + 1`` unmet)."""
+    blk = exit_steps.view(-1, block_pairs).amax(dim=1, keepdim=True)
+    return blk.repeat_interleave(block_pairs, dim=0).view(-1, 1)
+
+
 def wfa_meet_plain(pattern, text, pat_rev, txt_rev, plen, tlen, starget, *,
                    pen, s_max: int, k_pad: int, block_pairs: int, heur=None,
                    begin_state: str = "M", end_state: str = "M"):
@@ -316,9 +411,11 @@ def wfa_meet_plain(pattern, text, pat_rev, txt_rev, plen, tlen, starget, *,
 def wfa_meet_cuda(pattern, text, pat_rev, txt_rev, plen, tlen, starget, *,
                   pen, s_max: int, k_pad: int, block_pairs: int, heur=None,
                   begin_state: str = "M", end_state: str = "M"):
-    """Launch the CUDA meet kernel on the current stream (no
-    synchronisation); same arguments and returns as
-    :func:`wfa_meet_plain`."""
+    """Launch the CUDA meet kernel on the current stream; same arguments
+    and returns as :func:`wfa_meet_plain`.  The kernel compares characters
+    as bytes, so every code must lie in [0, 255]: checking that costs one
+    reduction and one synchronisation (span ``meet.check_codes``), and
+    anything else raises."""
     from repro_torch.kernels.wfa import build
 
     model = scoring.as_model(pen)
@@ -334,27 +431,39 @@ def wfa_meet_cuda(pattern, text, pat_rev, txt_rev, plen, tlen, starget, *,
                                          plen, tlen, starget))
     dev = pattern.device
     B = pattern.shape[0]
+    # the kernel compares characters as bytes: exact for codes in [0, 255]
+    with obs_trace.span("meet.check_codes", cat="kernel"):
+        wide = [((t < 0) | (t > 255)).any() for t in ins[:4] if t.numel()]
+        if wide and bool(torch.stack(wide).any()):
+            raise ValueError("the meet kernel compares characters as bytes: "
+                             "every code must lie in [0, 255]")
     affine = model.kind == "affine"
     Wd = wf.meet_window(model)
+    De = model.e + 1 if affine else 0
+    band = _meet_band_on(dev, model, max(int(s_max), 0), k_pad, begin_state,
+                         end_state)
     outs = tuple(torch.empty((B, 1), dtype=torch.int32, device=dev)
                  for _ in range(8))
     kind, hp1, hp2 = _heur_args(heur)
-    n_scratch = lib.wfa_meet_scratch_ints(B, block_pairs, k_pad, Wd,
-                                          int(affine))
+    n_scratch = lib.wfa_meet_scratch_ints(B, pattern.shape[1],
+                                          text.shape[1], k_pad, Wd,
+                                          model.window, De, int(affine))
     scratch = torch.empty(n_scratch, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):     # launch on the tensors' card
         rc = lib.wfa_meet_launch(
-            *(t.data_ptr() for t in ins + outs), scratch.data_ptr(),
-            B, pattern.shape[1], text.shape[1], block_pairs, k_pad,
-            int(s_max), model.x, model.o, model.e, Wd, int(affine), kind,
-            hp1, hp2, wf.STATES.index(begin_state),
+            *(t.data_ptr() for t in ins + (band,) + outs),
+            scratch.data_ptr(), B, pattern.shape[1], text.shape[1], k_pad,
+            int(s_max), model.x, model.o, model.e, Wd, model.window, De,
+            int(affine), kind, hp1, hp2, wf.STATES.index(begin_state),
             wf.STATES.index(end_state),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"WFA meet kernel launch failed: "
                            f"{lib.wfa_error_string(rc).decode()} ({rc})")
     LAUNCHES["meet"] += 1
-    return outs
+    # the kernel writes each pair's exit step; a block exits at its last
+    score, steps, *rest = outs
+    return (score, block_steps(steps, block_pairs), *rest)
 
 
 def wfa_meet_kernel(pattern, text, pat_rev, txt_rev, plen, tlen, starget, *,

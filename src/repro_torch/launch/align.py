@@ -51,7 +51,8 @@ from repro_torch.data.reads import ReadPairSpec, generate_pairs
 
 def _run_sync(engine, P, plen, T, tlen, output):
     t0 = time.perf_counter()
-    res = engine.align_packed(P, plen, T, tlen, output=output)
+    with obs.trace.span("align.sync", cat="align"):
+        res = engine.align_packed(P, plen, T, tlen, output=output)
     return res.scores, res.cigars, res.stats, time.perf_counter() - t0
 
 
@@ -171,11 +172,12 @@ def main(argv=None, summary: Optional[dict] = None) -> int:
             runs.append(("sync",
                          _run_sync(engine, P, plen, T, tlen, out_mode)))
         if args.mode in ("stream", "both"):
-            runs.append(("stream",
-                         run_streamed(engine, P, plen, T, tlen,
-                                      submit_pairs=submit_pairs,
-                                      max_inflight_waves=args.inflight,
-                                      output=out_mode)))
+            with obs.trace.span("align.stream", cat="align"):
+                runs.append(("stream",
+                             run_streamed(engine, P, plen, T, tlen,
+                                          submit_pairs=submit_pairs,
+                                          max_inflight_waves=args.inflight,
+                                          output=out_mode)))
     if args.trace_out:
         log(f"[align] trace -> {args.trace_out}")
 

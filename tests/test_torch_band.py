@@ -13,8 +13,8 @@
   JAX engine;
 * ``band_cap >= K`` runs full width, as in the JAX package.
 
-The CUDA band kernel is held against its plain version on the card (``gpu``
-marker)."""
+The CUDA band kernel is held against its plain version on the card in
+``test_torch_wfa_gpu.py``."""
 import numpy as np
 import pytest
 
@@ -412,37 +412,3 @@ def test_band_counts_no_launch_on_cpu():
                     band_cap=33, device="cpu")
     assert t_kernel.LAUNCHES == before
     assert {"score_band", "trace_band"} <= set(t_kernel.LAUNCHES)
-
-
-# -- the CUDA band kernel on the card ---------------------------------------
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-def test_cuda_band_kernel_matches_plain(cuda_device):
-    """Every model x heuristic x output on the band (128 and 256 lanes, and
-    512 with the rings in global scratch), ragged pairs of 400 bp."""
-    P, plen, T, tlen = generate_pairs(ReadPairSpec(
-        n_pairs=32, read_len=400, edit_frac=0.05, seed=1))
-    args = t_ops._prep(P, T, plen, tlen, 8, device=cuda_device)[:4]
-    for pen in (t_scoring.GapAffine(), t_scoring.GapLinear(),
-                t_scoring.Edit()):
-        for heur, cap in ((t_scoring.AdaptiveBand(), 128),
-                          (t_scoring.ZDrop(), 256), (None, 512)):
-            for trace in (False, True):
-                kw = dict(pen=pen, s_max=900, k_pad=1024, block_pairs=8,
-                          trace=trace, heur=heur, band_cap=cap)
-                key = "trace_band" if trace else "score_band"
-                before = t_kernel.LAUNCHES[key]
-                got = t_kernel.wfa_cuda(*args, **kw)
-                torch.cuda.synchronize()
-                want = t_kernel.wfa_plain(*args, **kw)
-                _assert_same([t.cpu().numpy() for t in want],
-                             [t.cpu().numpy() for t in got])
-                assert t_kernel.LAUNCHES[key] == before + 1

@@ -6,7 +6,7 @@ field for field against ``repro.kernels.wfa``'s Pallas meet kernel under
 ``steps``), and the port's shared solver ``wfa_bidir_meet`` against the JAX
 ``core.wavefront.wfa_bidir_meet`` (with ``n_steps``).  Exact equality: every
 field is an integer.  The CUDA kernel itself is held against the plain
-version on the card (``gpu`` marker)."""
+version on the card in ``test_torch_wfa_gpu.py``."""
 import numpy as np
 import pytest
 
@@ -155,42 +155,3 @@ def test_meet_defaults_to_the_card(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             fn(P, T, plen, tlen, st, pen=t_scoring.GapAffine(), s_max=20,
                k_max=8)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-def test_cuda_meet_kernel_matches_plain(cuda_device):
-    """(d) models x heuristics x boundary states, all eight outputs."""
-    P, plen, T, tlen = generate_pairs(
-        ReadPairSpec(n_pairs=64, read_len=100, edit_frac=0.04, seed=1))
-    pp, tt, pl, tl, _ = t_ops._prep(P, T, plen, tlen, 8, device=cuda_device)
-    rev = (t_wf._reverse_rows(pp, pl[:, 0]), t_wf._reverse_rows(tt, tl[:, 0]))
-    for pen in (t_scoring.GapAffine(), t_scoring.GapLinear(),
-                t_scoring.Edit()):
-        states_list = ([("M", "M"), ("I", "D"), ("D", "M")]
-                       if pen.kind == "affine" else [("M", "M")])
-        for heur in (None, t_scoring.AdaptiveBand(10, 4),
-                     t_scoring.ZDrop(8)):
-            for states in states_list:
-                st = t_wf.wfa_scores_packed(
-                    pp, tt, pl[:, 0], tl[:, 0], pen=pen, s_max=160,
-                    k_max=60, heur=heur, begin_state=states[0],
-                    end_state=states[1], device=cuda_device).score
-                args = (pp, tt, *rev, pl, tl, st[:, None])
-                kw = dict(pen=pen, s_max=64, k_pad=128, block_pairs=8,
-                          heur=heur, begin_state=states[0],
-                          end_state=states[1])
-                before = t_kernel.LAUNCHES["meet"]
-                got = t_kernel.wfa_meet_cuda(*args, **kw)
-                torch.cuda.synchronize()
-                want = t_kernel.wfa_meet_plain(*args, **kw)
-                for a, b in zip(want, got):
-                    np.testing.assert_array_equal(a.cpu().numpy(),
-                                                  b.cpu().numpy())
-                assert t_kernel.LAUNCHES["meet"] == before + 1

@@ -5,7 +5,8 @@ held bit for bit against ``repro.kernels.wfa`` under ``interpret=True``:
 scores, per-block ``steps`` and packed trace words, at the same
 ``block_pairs``, across penalty models x heuristics x outputs, with padded
 pairs, ragged lengths and pairs over ``s_max`` (-1).  The CUDA kernel itself
-is held against the plain version on the card (``gpu`` marker)."""
+is held against the plain version on the card in
+``test_torch_wfa_gpu.py``."""
 import numpy as np
 import pytest
 
@@ -148,34 +149,3 @@ def test_cuda_launcher_refuses_cpu_tensors():
         t_kernel.wfa_cuda(z, z, lens, lens, pen=t_scoring.Edit(), s_max=4,
                           k_pad=128, block_pairs=8)
     assert t_kernel.LAUNCHES == before
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-def test_cuda_kernel_matches_plain(cuda_device):
-    """Every model x heuristic x output, at pass-1 and exact-bucket bounds
-    (rings in shared memory and in global scratch)."""
-    P, plen, T, tlen = _batch(n=64, L=100, E=0.04, seed=1)
-    args = t_ops._prep(P, T, plen, tlen, 8, device=cuda_device)[:4]
-    for pen in (t_scoring.GapAffine(), t_scoring.GapLinear(),
-                t_scoring.Edit()):
-        for heur in (None, t_scoring.AdaptiveBand(10, 4),
-                     t_scoring.ZDrop(8)):
-            for trace in (False, True):
-                for s_max, k_pad in ((38, 128), (416, 384)):
-                    kw = dict(pen=pen, s_max=s_max, k_pad=k_pad,
-                              block_pairs=8, trace=trace, heur=heur)
-                    before = dict(t_kernel.LAUNCHES)
-                    got = t_kernel.wfa_cuda(*args, **kw)
-                    torch.cuda.synchronize()
-                    want = t_kernel.wfa_plain(*args, **kw)
-                    _assert_same([t.cpu().numpy() for t in want],
-                                 [t.cpu().numpy() for t in got])
-                    key = "trace" if trace else "score"
-                    assert t_kernel.LAUNCHES[key] == before[key] + 1

@@ -1,0 +1,244 @@
+"""The CUDA WFA kernels equal their plain versions on the card.
+
+It imports no JAX, so it also runs on a machine with a card and no JAX:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_wfa_gpu.py
+
+Without a card it skips.  Three kernels of ``csrc/wfa.cu`` and
+``csrc/wfa_meet.cu``: the full-width score and trace kernel, the meet search
+and the compacting band.  Inputs come from the port's seeded read generator;
+every output is an integer, so each is held exactly equal to the plain
+version's (the plain versions are held against the JAX package on the CPU in
+``test_torch_kernel_wfa.py``, ``test_torch_kernel_meet.py`` and
+``test_torch_band.py``).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import scoring as t_scoring  # noqa: E402
+from repro_torch.core import wavefront as t_wf  # noqa: E402
+from repro_torch.data.reads import ReadPairSpec, generate_pairs  # noqa: E402
+from repro_torch.kernels.wfa import kernel as t_kernel  # noqa: E402
+from repro_torch.kernels.wfa import ops as t_ops  # noqa: E402
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _assert_same(want, got):
+    assert len(want) == len(got)
+    for a, b in zip(want, got):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        assert a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_matches_plain(cuda_device):
+    """Every model x heuristic x output, at pass-1 and exact-bucket bounds
+    (rings in shared memory and in global scratch)."""
+    P, plen, T, tlen = generate_pairs(ReadPairSpec(
+        n_pairs=64, read_len=100, edit_frac=0.04, seed=1))
+    args = t_ops._prep(P, T, plen, tlen, 8, device=cuda_device)[:4]
+    for pen in (t_scoring.GapAffine(), t_scoring.GapLinear(),
+                t_scoring.Edit()):
+        for heur in (None, t_scoring.AdaptiveBand(10, 4),
+                     t_scoring.ZDrop(8)):
+            for trace in (False, True):
+                for s_max, k_pad in ((38, 128), (416, 384)):
+                    kw = dict(pen=pen, s_max=s_max, k_pad=k_pad,
+                              block_pairs=8, trace=trace, heur=heur)
+                    before = dict(t_kernel.LAUNCHES)
+                    got = t_kernel.wfa_cuda(*args, **kw)
+                    torch.cuda.synchronize()
+                    want = t_kernel.wfa_plain(*args, **kw)
+                    _assert_same(want, got)
+                    key = "trace" if trace else "score"
+                    assert t_kernel.LAUNCHES[key] == before[key] + 1
+
+
+@pytest.mark.gpu
+def test_cuda_band_kernel_matches_plain(cuda_device):
+    """Every model x heuristic x output on the band (128 and 256 lanes, and
+    512 with the rings in global scratch), ragged pairs of 400 bp."""
+    P, plen, T, tlen = generate_pairs(ReadPairSpec(
+        n_pairs=32, read_len=400, edit_frac=0.05, seed=1))
+    args = t_ops._prep(P, T, plen, tlen, 8, device=cuda_device)[:4]
+    for pen in (t_scoring.GapAffine(), t_scoring.GapLinear(),
+                t_scoring.Edit()):
+        for heur, cap in ((t_scoring.AdaptiveBand(), 128),
+                          (t_scoring.ZDrop(), 256), (None, 512)):
+            for trace in (False, True):
+                kw = dict(pen=pen, s_max=900, k_pad=1024, block_pairs=8,
+                          trace=trace, heur=heur, band_cap=cap)
+                key = "trace_band" if trace else "score_band"
+                before = t_kernel.LAUNCHES[key]
+                got = t_kernel.wfa_cuda(*args, **kw)
+                torch.cuda.synchronize()
+                want = t_kernel.wfa_plain(*args, **kw)
+                _assert_same(want, got)
+                assert t_kernel.LAUNCHES[key] == before + 1
+
+
+# -- the meet search ---------------------------------------------------------
+
+
+def _meet_args(pp, tt, pl, tl, st):
+    """The seven inputs of the meet kernel from padded rows and costs."""
+    return (pp, tt, t_wf._reverse_rows(pp, pl[:, 0]),
+            t_wf._reverse_rows(tt, tl[:, 0]), pl, tl,
+            st.to(torch.int32).reshape(-1, 1))
+
+
+def _costs(pp, tt, pl, tl, pen, heur, states, s_max, k_max):
+    """Each pair's cost under the boundary states (the packed ring solver)."""
+    return t_wf.wfa_scores_packed(
+        pp, tt, pl[:, 0], tl[:, 0], pen=pen, s_max=s_max, k_max=k_max,
+        heur=heur, begin_state=states[0], end_state=states[1],
+        device=pp.device).score
+
+
+def _meet_s_max(pen, st):
+    """The BiWFA recursion's score cap for a meet wave of costs ``st``."""
+    o = pen.o if pen.kind == "affine" else 0
+    top = int(st.max()) if st.numel() else 0
+    return t_ops._round_up((max(top, 0) + o) // 2
+                           + t_wf.meet_window(pen) + 2, 32)
+
+
+def _meet_check(args, **kw):
+    """Kernel vs plain on the same inputs, one counted launch -> outputs."""
+    before = t_kernel.LAUNCHES["meet"]
+    got = t_kernel.wfa_meet_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    want = t_kernel.wfa_meet_plain(*args, **kw)
+    _assert_same(want, got)
+    assert t_kernel.LAUNCHES["meet"] == before + 1
+    return got
+
+
+@pytest.mark.gpu
+def test_cuda_meet_kernel_matches_plain(cuda_device):
+    """Models x heuristics x boundary states, all eight outputs."""
+    P, plen, T, tlen = generate_pairs(ReadPairSpec(
+        n_pairs=64, read_len=100, edit_frac=0.04, seed=1))
+    pp, tt, pl, tl, _ = t_ops._prep(P, T, plen, tlen, 8, device=cuda_device)
+    for pen in (t_scoring.GapAffine(), t_scoring.GapLinear(),
+                t_scoring.Edit()):
+        states_list = ([("M", "M"), ("I", "D"), ("D", "M")]
+                       if pen.kind == "affine" else [("M", "M")])
+        for heur in (None, t_scoring.AdaptiveBand(10, 4),
+                     t_scoring.ZDrop(8)):
+            for states in states_list:
+                st = _costs(pp, tt, pl, tl, pen, heur, states, 160, 60)
+                _meet_check(_meet_args(pp, tt, pl, tl, st), pen=pen,
+                            s_max=64, k_pad=128, block_pairs=8, heur=heur,
+                            begin_state=states[0], end_state=states[1])
+
+
+def _mixed_pairs():
+    """24 pairs, each block holding all three cost classes: 60 bp at
+    E = 1%, 100 bp at E = 4% and 300 bp at E = 10%."""
+    parts = [generate_pairs(ReadPairSpec(n_pairs=8, read_len=L, edit_frac=E,
+                                         seed=seed))
+             for L, E, seed in ((60, 0.01, 3), (100, 0.04, 4),
+                                (300, 0.10, 5))]
+    n = sum(p[0].shape[0] for p in parts)
+    Lp = max(p[0].shape[1] for p in parts)
+    Lt = max(p[2].shape[1] for p in parts)
+    P = np.zeros((n, Lp), np.int32)
+    T = np.zeros((n, Lt), np.int32)
+    plen, tlen = np.zeros(n, np.int32), np.zeros(n, np.int32)
+    for c, (p, pl, t, tl) in enumerate(parts):
+        rows = np.arange(c, n, len(parts))      # interleave the classes
+        P[rows, :p.shape[1]], T[rows, :t.shape[1]] = p, t
+        plen[rows], tlen[rows] = pl, tl
+    return P, plen, T, tlen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["1kb-E5", "ragged-batch", "mixed-cost",
+                                  "unmet", "wide-rows"])
+def test_cuda_meet_kernel_edge_cases(cuda_device, case):
+    """Where a per-pair meet kernel could part from the block-wide plain
+    version: 1 kb pairs at E = 5% (a wide band, a long meet window), a
+    batch of 13 pairs in blocks of 8 (padded rows and a block of padding
+    only), pairs of very different cost in one block (per-pair exits), an
+    s_max that leaves pairs unmet, and short pairs in rows too wide for
+    shared memory (the kernel's characters then live in global scratch)."""
+    pen = t_scoring.GapAffine()
+    heurs = [None]
+    if case == "1kb-E5":
+        P, plen, T, tlen = generate_pairs(ReadPairSpec(
+            n_pairs=16, read_len=1000, edit_frac=0.05, seed=7))
+        k_max, s_cap = 200, 800
+        heurs = [None, t_scoring.AdaptiveBand(10, 4), t_scoring.ZDrop(8)]
+    elif case == "mixed-cost":
+        P, plen, T, tlen = _mixed_pairs()
+        k_max, s_cap = 120, 600
+    else:
+        P, plen, T, tlen = generate_pairs(ReadPairSpec(
+            n_pairs=13 if case == "ragged-batch" else 32, read_len=100,
+            edit_frac=0.08, seed=11))
+        k_max, s_cap = 60, 240
+    pp, tt, pl, tl, B = t_ops._prep(P, T, plen, tlen, 8, device=cuda_device)
+    if case == "ragged-batch":                  # 16 rows -> 24: block 2 empty
+        pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 8))
+        pp, tt, pl, tl = pad(pp), pad(tt), pad(pl), pad(tl)
+    k_pad = t_ops._round_up(2 * k_max + 1, t_ops.LANE)
+    if case == "wide-rows":
+        # four rows of 60,000 bytes pass the 227 KB of shared memory a CTA
+        # may hold, so the launch puts them in global scratch: the scratch
+        # it asks for grows by one pair's bytes (2 x 2 x (60,000 + 4))
+        W = 60000
+        cols = lambda t: torch.nn.functional.pad(t, (0, W - t.shape[1]))
+        pp, tt = cols(pp), cols(tt)
+        from repro_torch.kernels.wfa import build
+        n = lambda L: build.load().wfa_meet_scratch_ints(
+            1, L, L, k_pad, t_wf.meet_window(pen), pen.window, pen.e + 1, 1)
+        assert n(W) - n(128) == (2 * 2 * (W + 4)) // 4
+    for heur in heurs:
+        st = _costs(pp, tt, pl, tl, pen, heur, ("M", "M"), s_cap, k_max)
+        assert bool((st[:B] >= 0).all()), "a pair's cost is past s_cap"
+        s_max = _meet_s_max(pen, st)
+        if case == "unmet":                     # about half the pairs fit
+            s_max = int(st.median()) // 2 + 2
+        got = _meet_check(_meet_args(pp, tt, pl, tl, st), pen=pen,
+                          s_max=s_max, k_pad=k_pad, block_pairs=8, heur=heur)
+        met = got[0][:B, 0] >= 0
+        steps = got[1][:, 0].cpu()
+        if case == "unmet":
+            assert 0 < int(met.sum()) < B
+            assert s_max + 1 in steps.tolist()
+        elif heur is None:                      # a cost of 0 has no split
+            assert bool((met == (st[:B] > 0)).all())
+        else:
+            assert int(met.sum()) >= B // 2
+        if case == "ragged-batch":
+            assert steps[16:].tolist() == [1] * 8
+            assert bool((got[0][B:, 0] == -1).all())
+
+
+@pytest.mark.gpu
+def test_cuda_meet_kernel_refuses_codes_past_a_byte(cuda_device):
+    """The kernel compares characters as bytes, so a code outside [0, 255]
+    raises before any launch."""
+    P, plen, T, tlen = generate_pairs(ReadPairSpec(
+        n_pairs=8, read_len=50, edit_frac=0.04, seed=2))
+    pp, tt, pl, tl, _ = t_ops._prep(P, T, plen, tlen, 8, device=cuda_device)
+    st = torch.full((8,), 12, dtype=torch.int32, device=cuda_device)
+    for bad in (256, -1):
+        tt2 = tt.clone()
+        tt2[3, 1] = bad
+        before = t_kernel.LAUNCHES["meet"]
+        with pytest.raises(ValueError, match="as bytes"):
+            t_kernel.wfa_meet_cuda(*_meet_args(pp, tt2, pl, tl, st),
+                                   pen=t_scoring.GapAffine(), s_max=40,
+                                   k_pad=128, block_pairs=8)
+        assert t_kernel.LAUNCHES["meet"] == before
