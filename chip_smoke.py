@@ -10,8 +10,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    ``csrc/wfa_meet.cu``, ``kernels/flash_attention/csrc/
    flash_attention.cu`` and ``flash_wgmma.cu``, one process per source,
    all started together, and prints each kernel's ptxas registers and
-   spills (each meet instantiation's too; the wgmma flash body must not
-   spill);
+   spills (each meet and band instantiation's too; the wgmma flash body
+   must not spill);
 3. kernel vs plain — the CUDA WFA kernel against its plain PyTorch version
    on the card, over {GapAffine(4,6,2), GapLinear, Edit} x {exact,
    AdaptiveBand, ZDrop} x {score, trace}, on one wave of 4,096 pairs of
@@ -43,13 +43,14 @@ Phases (each raises on failure, and the script then exits non-zero):
    ``band_cap``) against its plain version over {GapAffine(4,6,2),
    GapLinear, Edit} x {AdaptiveBand(), ZDrop(), AdaptiveBand(10,4),
    ZDrop(8)} x {score, trace} on 256 pairs of 1 kb at exact-bucket bounds
-   (``k_pad`` 2,176, so every band is narrower), plus a 512-lane band whose
-   affine rings live in global scratch; scores, steps and trace words
-   equal.  Then at the 10 kb root shape (GapAffine(4,6,2), AdaptiveBand(),
-   ``k_pad`` 4,992, 128 lanes): block 0 against the plain version (score on
-   the 1,024-pair wave, trace on the 64-pair wave), the band timed on the
-   full waves, and the full-width kernel, heuristic and exact, timed on the
-   same wave;
+   (``k_pad`` 2,176, so every band is narrower), plus an exact 512-lane
+   band; scores, steps and trace words equal.  Then at the 10 kb root shape
+   (GapAffine(4,6,2), AdaptiveBand(), ``k_pad`` 4,992, 128 lanes): the
+   whole 1,024-pair score wave and 64-pair trace wave against the plain
+   version, the band timed on them and on their block 0 with both bounds
+   (bytes; integer operations of the window cells the recurrence can reach
+   up to each block's exit step), and the full-width kernel, heuristic and
+   exact, timed on the same wave;
 8. banded path — ``AlignmentEngine(GapAffine(4,6,2), backend="kernel",
    heuristic=AdaptiveBand(), backend_opts={"band_cap": "auto"})`` on the
    1,024 pairs of 10 kb: ``output="score"`` blocking and streamed,
@@ -58,7 +59,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    re-score to its cost, no meet may go unmet or fall back, and 4 scores
    must be upper bounds of the Gotoh optimum; the same runs on the ``ring``
    backend (one window per pair) are the yardstick, and the counts of pairs
-   equal to the full-width heuristic run are printed;
+   equal to the full-width heuristic run are printed, with the seconds the
+   band wrapper's byte check of the codes (``band.check_codes``) takes in
+   a second, traced run of the blocking score and bidir runs;
 9. flash kernel vs plain — every CUDA flash-attention body that takes the
    inputs against the plain version over {MHA 8/8, GQA 16/8, MQA 16/1,
    qwen3-32b's 64/8, granite-34b's 48/1} x {causal, non-causal} x {fp32,
@@ -124,6 +127,9 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM tensor cores, dense bf16
 # integer operations of one front's cell of the meet recurrence (the count
 # in the header note of csrc/wfa_meet.cu)
 MEET_OPS_PER_CELL = 18
+# integer operations of one window cell of the band recurrence (the count in
+# the band kernel's note in csrc/wfa.cu, codes not counted)
+BAND_OPS_PER_CELL = 24
 # flash attention: the tolerances of tests/test_kernel_flash.py (max |err|)
 FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 # In bf16 the absolute 2e-2 is about the size of the outputs at S 2,048
@@ -439,6 +445,32 @@ def meet_bound(K, pen, outs, s_max, k_pad, plen, tlen):
             cells, bytes_ms, ops_ms)
 
 
+def band_bound(K, pen, steps, band, block_pairs, s_max, k_pad, plen, tlen,
+               out_bytes):
+    """The least time the card could take for one band wave -> (ms, "bytes"
+    | "operations", bytes ms, operations ms, window cells, operations).
+    Bytes as :func:`kernel_bound`.  Operations: BAND_OPS_PER_CELL for each
+    window cell the recurrence can reach, plus one compare per aligned
+    column.  A block computes rows 1 to its exit step (``steps``, per pair)
+    less one; at row s its window of ``band`` lanes holds at most
+    min(band, lanes of the M range of ``kernel.meet_band``'s forward front
+    at s) reachable lanes for each of its ``block_pairs`` pairs (that range
+    covers I and D; under GapAffine(4,6,2) no odd row has one)."""
+    import numpy as np
+    rng = K.meet_band(pen, s_max, k_pad)[:, 0, 0]             # [S+1, 2]
+    width = np.minimum(np.clip(rng[:, 1] - rng[:, 0] + 1, 0, None), band)
+    cum = np.cumsum(width.astype(np.int64)) - width[0]        # rows 1..s
+    blk = np.asarray(steps, dtype=np.int64)[::block_pairs]
+    cells = int(cum[np.clip(blk - 1, 0, s_max)].sum()) * block_pairs
+    _, _, nbytes, compares = kernel_bound(plen, tlen, out_bytes)
+    ops = cells * BAND_OPS_PER_CELL + compares
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", bytes_ms, ops_ms,
+            cells, ops)
+
+
 def phase_meet_root(K, S, dev):
     """Phase 4b: one meet wave at the BiWFA path's root shape -> timing
     record.  starget comes from the score kernel at pass-1 bounds; the
@@ -658,12 +690,6 @@ def phase_bidir_path(K, root):
     return launches, bidir, packed, err, split
 
 
-def slice_block(outs, n):
-    """The first ``n`` pairs of a kernel's outputs ([B, 1] columns, [NW, B,
-    k_pad] planes)."""
-    return tuple(t[:n] if t.dim() == 2 else t[:, :n] for t in outs)
-
-
 def phase_band_grid(K, S, ops, dev):
     """Phase 7: the CUDA band kernel vs its plain version on 1 kb pairs ->
     (max |err| of the score cases, of the trace cases)."""
@@ -683,7 +709,7 @@ def phase_band_grid(K, S, ops, dev):
         cases = [(h, ops._band_lanes(h.band_cap(2 * k_max + 1), k_pad))
                  for h in (S.AdaptiveBand(), S.ZDrop(), S.AdaptiveBand(10, 4),
                            S.ZDrop(8))]
-        cases.append((None, 512))       # affine rings in global scratch
+        cases.append((None, 512))       # 16 warps a pair
         for heur, cap in cases:
             if cap is None or cap >= k_pad:
                 raise AssertionError(f"the band does not engage: {heur} "
@@ -710,9 +736,10 @@ def phase_band_grid(K, S, ops, dev):
 
 def phase_band_root(K, S, ops, dev):
     """Phase 7b: the band at the 10 kb root shape -> timing records for the
-    score (1,024-pair wave) and trace (64-pair wave) variants.  Block 0 of
-    each is held against the plain version; the full-width kernel,
-    heuristic and exact, is timed on the same score wave."""
+    score (1,024-pair wave) and trace (64-pair wave) variants.  Each wave is
+    held whole against the plain version (so the exit steps that its bound
+    counts are checked), and its block 0 timed on its own; the full-width
+    kernel, heuristic and exact, is timed on the same score wave."""
     from repro_torch.core.engine import AlignmentEngine
     from repro_torch.data.reads import ReadPairSpec, generate_pairs
     P, plen, T, tlen = generate_pairs(ReadPairSpec(
@@ -734,30 +761,38 @@ def phase_band_root(K, S, ops, dev):
         got = K.wfa_cuda(*wave, band_cap=cap, **kw)
         torch_sync()
         t0 = time.perf_counter()
-        want = K.wfa_plain(*(a[:n] for a in wave), band_cap=cap, **kw)
+        want = K.wfa_plain(*wave, band_cap=cap, **kw)
         torch_sync()
         p_ms = (time.perf_counter() - t0) * 1e3
-        err = max_abs_err(slice_block(got, n), want)
+        err = max_abs_err(got, want)
+        del want
         if err:
             raise AssertionError(f"band kernel != plain at the 10 kb shape "
                                  f"(trace={trace}): max|err|={err}")
         out_bytes = sum(t.numel() * t.element_size() for t in got)
+        steps = got[1][:, 0].cpu().numpy()
         del got
         k_ms = cuda_ms(lambda: K.wfa_cuda(*wave, band_cap=cap, **kw), 3)
         k_ms_n = cuda_ms(lambda: K.wfa_cuda(*(a[:n] for a in wave),
                                             band_cap=cap, **kw), 3)
-        bound, by, nbytes, nops = kernel_bound(plen[:pairs], tlen[:pairs],
-                                               out_bytes)
+        bound, by, bytes_ms, ops_ms, cells, nops = band_bound(
+            K, pen, steps, cap, kw["block_pairs"], s1, k_pad, plen[:pairs],
+            tlen[:pairs], out_bytes)
         name = "wfa_band_trace" if trace else "wfa_band_score"
         rec = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                   ms_on_plain_inputs=k_ms_n, plain_pairs=n, pairs=pairs,
-                   bound_ms=bound, bound_by=by, band=cap, k_pad=k_pad,
-                   s_max=s1)
+                   block0_ms=k_ms_n, block_pairs=n, pairs=pairs,
+                   bound_ms=bound, bound_by=by, bytes_bound_ms=bytes_ms,
+                   ops_bound_ms=ops_ms, window_cells=cells, band=cap,
+                   k_pad=k_pad, s_max=s1, block0_steps=int(steps[0]),
+                   max_steps=int(steps.max()))
         log(f"[band] {name}: {pairs} pairs of {LONG_LEN} bp, s_max={s1} "
-            f"k_pad={k_pad}, band {cap}: kernel {k_ms:.3f} ms ({k_ms_n:.3f} "
-            f"ms on the first {n}), plain {p_ms:.1f} ms on the first {n} "
-            f"(equal), bound {bound:.5f} ms ({by}: {nbytes} bytes, {nops} "
-            f"compares)")
+            f"k_pad={k_pad}, band {cap}; block exit steps: block 0 "
+            f"{int(steps[0])}, max {int(steps.max())}: kernel {k_ms:.3f} ms "
+            f"({k_ms_n:.3f} ms on block 0, the first {n}), plain "
+            f"{p_ms:.1f} ms on all {pairs} (equal); bound {bound:.5f} ms "
+            f"({by}): bytes {bytes_ms:.5f} ms, operations {ops_ms:.5f} ms "
+            f"({cells:,} reachable window cells x {BAND_OPS_PER_CELL} + one "
+            f"compare per aligned column = {nops:,})")
         if not trace:
             full = K.wfa_cuda(*wave, **kw)[0]
             band = K.wfa_cuda(*wave, band_cap=cap, **kw)[0]
@@ -802,6 +837,7 @@ def phase_band_path(K, S, dev):
     from repro_torch.core.gotoh import gotoh_score_vec
     from repro_torch.core.session import run_streamed
     from repro_torch.data.reads import ReadPairSpec, generate_pairs
+    from repro_torch.obs import trace
     P, plen, T, tlen = generate_pairs(ReadPairSpec(
         n_pairs=LONG_PAIRS, read_len=LONG_LEN, edit_frac=LONG_EDIT, seed=0))
     pen, heur = S.GapAffine(4, 6, 2), S.AdaptiveBand()
@@ -825,6 +861,21 @@ def phase_band_path(K, S, dev):
             f"{st.t_gather:.3f}s)")
         return res
 
+    def checks(name, fn):
+        """fn() again with the port's tracer on, timed as ``name`` -> seconds
+        in the band kernel's byte check of the codes (span
+        band.check_codes)."""
+        trace.reset()
+        trace.enable()
+        try:
+            timed(name, fn)
+        finally:
+            trace.disable()
+        sec = sum(e["dur"] for e in trace.events()
+                  if e.get("name") == "band.check_codes") / 1e6
+        trace.reset()
+        return sec
+
     eng = mk("kernel", backend_opts=auto)
     eng.align_packed(P, plen, T, tlen)              # warmup
     K.reset_launches()
@@ -834,13 +885,29 @@ def phase_band_path(K, S, dev):
     stream = timed("kernel score stream", lambda: run_streamed(
         eng, P, plen, T, tlen, submit_pairs=LONG_PAIRS // 4,
         output="score"))
-    bidir = timed("kernel cigar bidir", lambda: eng.align_packed(
-        P, plen, T, tlen, output="cigar", trace_variant="bidir"))
+    bidir_run = lambda: eng.align_packed(P, plen, T, tlen, output="cigar",
+                                         trace_variant="bidir")
+    bidir = timed("kernel cigar bidir", bidir_run)
     packed = timed("kernel cigar packed", lambda: eng.align_packed(
         sub(P), sub(plen), sub(T), sub(tlen), output="cigar"))
     launches = dict(K.LAUNCHES)
     log(f"[banded] kernel path in {time.perf_counter() - t0:.1f}s; "
         f"launches {launches}")
+    # the byte check's seconds from a second, traced run of the score and
+    # bidir runs (their walls above are untraced; these reruns come after
+    # the path's launch counts are read)
+    chk_score = checks("kernel score sync traced",
+                       lambda: eng.align_packed(P, plen, T, tlen))
+    chk_bidir = checks("kernel cigar bidir traced", bidir_run)
+    summary["band_check_codes_s"] = dict(score_sync=chk_score,
+                                         cigar_bidir=chk_bidir)
+    log(f"[banded] band code check (a reduction and a sync per band "
+        f"launch): {chk_score:.4f} s of the traced score run's wall "
+        f"{summary['kernel score sync traced']['wall_s']:.4f} s (untraced "
+        f"{summary['kernel score sync']['wall_s']:.4f} s), {chk_bidir:.4f} s "
+        f"of the traced bidir run's "
+        f"{summary['kernel cigar bidir traced']['wall_s']:.4f} s (untraced "
+        f"{summary['kernel cigar bidir']['wall_s']:.4f} s)")
     if not (launches["score_band"] and launches["trace_band"]
             and launches["meet"]):
         raise AssertionError(f"the banded path missed a kernel: {launches}")
@@ -1438,6 +1505,9 @@ def main() -> int:
     meet_regs = [f"{short(n)} {r} registers, {sp} B spilled"
                  for n, sp, r in entries if "wfa_meet_kernel" in n]
     log("[build] ptxas (meet): " + "; ".join(meet_regs))
+    band_regs = [f"{short(n)} {r} registers, {sp} B spilled"
+                 for n, sp, r in entries if "wfa_band_kernel" in n]
+    log("[build] ptxas (band): " + "; ".join(band_regs))
     spilled = [f"{short(n)} {sp} B" for n, sp, _ in entries if int(sp)]
     if spilled:
         log(f"[build] spill stores: {', '.join(spilled)}")
@@ -1553,12 +1623,18 @@ def main() -> int:
                "replaces": "src/repro/kernels/wfa/kernel.py:334",
                "launches": band_launches[key],
                "max_abs_err": max(err, r["max_abs_err"]),
+               # kernel and plain on the same whole wave; block0_ms is the
+               # kernel on its first block_pairs pairs
                "ms": r["ms"], "plain_ms": r["plain_ms"],
-               # plain_ms is taken on the first plain_pairs pairs of the
-               # wave; ms_on_plain_inputs is the kernel on those pairs
-               "ms_on_plain_inputs": r["ms_on_plain_inputs"],
-               "plain_pairs": r["plain_pairs"], "pairs": r["pairs"],
+               "block0_ms": r["block0_ms"], "block_pairs": r["block_pairs"],
+               "pairs": r["pairs"],
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+               # both bounds: the bytes moved and the integer operations of
+               # the window cells the recurrence can reach up to each
+               # block's exit step
+               "bytes_bound_ms": r["bytes_bound_ms"],
+               "ops_bound_ms": r["ops_bound_ms"],
+               "registers": band_regs,
                "library_ms": None}
         if "full_heur_ms" in r:
             rec.update(full_width_heuristic_ms=r["full_heur_ms"],

@@ -22,7 +22,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.wfa_scratch_ints.restype = ctypes.c_longlong
     lib.wfa_band_launch.argtypes = [P] * 10 + [I] * 16 + [P]
     lib.wfa_band_launch.restype = I
-    lib.wfa_band_scratch_ints.argtypes = [I] * 5
+    lib.wfa_band_scratch_ints.argtypes = [I] * 8
     lib.wfa_band_scratch_ints.restype = ctypes.c_longlong
     lib.wfa_error_string.argtypes = [I]
     lib.wfa_error_string.restype = ctypes.c_char_p

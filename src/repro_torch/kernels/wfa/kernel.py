@@ -186,6 +186,18 @@ def wfa_plain(pattern, text, plen, tlen, *, pen, s_max: int, k_pad: int,
     return (score[:, None], steps) + bts
 
 
+def _check_bytes(span: str, kernel: str, tensors) -> None:
+    """Raise ``ValueError`` unless every code of ``tensors`` lies in [0,
+    255]: the kernel compares characters as bytes, which is exact only
+    there.  One reduction and one synchronisation, in the tracer span
+    ``span``."""
+    with obs_trace.span(span, cat="kernel"):
+        wide = [((t < 0) | (t > 255)).any() for t in tensors if t.numel()]
+        if wide and bool(torch.stack(wide).any()):
+            raise ValueError(f"the {kernel} kernel compares characters as "
+                             f"bytes: every code must lie in [0, 255]")
+
+
 def _heur_args(heur):
     if heur.exact:
         return 0, 0, 0
@@ -199,9 +211,12 @@ def _heur_args(heur):
 def wfa_cuda(pattern, text, plen, tlen, *, pen, s_max: int, k_pad: int,
              block_pairs: int, trace: bool = False, heur=None,
              band_cap=None):
-    """Launch the CUDA kernel on the current stream (no synchronisation);
-    same arguments and returns as :func:`wfa_plain`.  ``band_cap`` below
-    ``k_pad`` launches the band kernel."""
+    """Launch the CUDA kernel on the current stream; same arguments and
+    returns as :func:`wfa_plain`.  ``band_cap`` below ``k_pad`` launches the
+    band kernel, which compares characters as bytes: every code must lie in
+    [0, 255], and checking that costs one reduction and one synchronisation
+    (span ``band.check_codes``); anything else raises.  The full-width
+    kernel does not synchronise."""
     from repro_torch.kernels.wfa import build
 
     model = scoring.as_model(pen)
@@ -219,6 +234,8 @@ def wfa_cuda(pattern, text, plen, tlen, *, pen, s_max: int, k_pad: int,
     affine = model.kind == "affine"
     W = model.window
     band = band_cap is not None and band_cap < k_pad
+    if band:
+        _check_bytes("band.check_codes", "band", (pattern, text))
     if not band and trace and BP * k_pad > lib.wfa_max_trace_cells():
         raise ValueError(
             f"trace kernel takes block_pairs * k_pad <= "
@@ -232,9 +249,10 @@ def wfa_cuda(pattern, text, plen, tlen, *, pen, s_max: int, k_pad: int,
         NW = wf.n_trace_words(s_max)
         bts = tuple(torch.zeros((NW, B, k_pad), **i32)
                     for _ in range(3 if affine else 1))
-    # rings that do not fit shared memory go here (the size is the CUDA
-    # source's to decide); freed on return: the caching allocator orders
-    # any reuse after the kernel on this stream
+    # rings (and the band kernel's byte characters) that do not fit shared
+    # memory go here (the size is the CUDA source's to decide); freed on
+    # return: the caching allocator orders any reuse after the kernel on
+    # this stream
     kind, hp1, hp2 = _heur_args(heur)
     ptr = lambda t: None if t is None else t.data_ptr()
     m_bt, i_bt, d_bt = (bts + (None, None, None))[:3]
@@ -247,7 +265,8 @@ def wfa_cuda(pattern, text, plen, tlen, *, pen, s_max: int, k_pad: int,
         stream = torch.cuda.current_stream(dev).cuda_stream
         if band:
             Kc = int(band_cap)
-            n_scratch = lib.wfa_band_scratch_ints(B, BP, Kc, W, int(affine))
+            n_scratch = lib.wfa_band_scratch_ints(
+                B, BP, Kc, W, int(affine), int(trace), *dims[1:3])
             scratch = torch.empty(n_scratch, **i32) if n_scratch else None
             rc = lib.wfa_band_launch(*ptrs, ptr(scratch), *dims, Kc, *rest,
                                      stream)
@@ -431,12 +450,7 @@ def wfa_meet_cuda(pattern, text, pat_rev, txt_rev, plen, tlen, starget, *,
                                          plen, tlen, starget))
     dev = pattern.device
     B = pattern.shape[0]
-    # the kernel compares characters as bytes: exact for codes in [0, 255]
-    with obs_trace.span("meet.check_codes", cat="kernel"):
-        wide = [((t < 0) | (t > 255)).any() for t in ins[:4] if t.numel()]
-        if wide and bool(torch.stack(wide).any()):
-            raise ValueError("the meet kernel compares characters as bytes: "
-                             "every code must lie in [0, 255]")
+    _check_bytes("meet.check_codes", "meet", ins[:4])
     affine = model.kind == "affine"
     Wd = wf.meet_window(model)
     De = model.e + 1 if affine else 0

@@ -6,7 +6,8 @@
 * the kernel's plain version on the band (one window per block) against
   ``wfa_pallas(interpret=True, band_cap=)``: scores, per-block steps and
   trace words, with padded rows, and with windows too narrow for the live
-  span (truncation);
+  span (truncation); a settled pair keeps getting codes until its block
+  exits (the per-block semantics the CUDA kernel must keep);
 * band against full width, for both, when the live span fits;
 * the engine with ``backend_opts={"band_cap": "auto"}`` on ``ring`` and
   ``kernel``, and BiWFA under ``AdaptiveBand`` plus the band, against the
@@ -181,6 +182,28 @@ def test_kernel_band_truncating_window_matches_pallas(pen, cap):
             _assert_same(want, got)
     if cap == 16:
         assert (got[0][:10] == -1).any()
+
+
+def test_kernel_band_trace_words_follow_the_block():
+    """The window and the exit are per block: a pair settled before its
+    block exits keeps getting codes until the block's exit step, in
+    ``wfa_pallas`` and in the port alike (kernel.py's ``pack_code`` ORs
+    codes for every row of a live block), so a kernel that stopped each
+    pair at its own score step would change the trace words."""
+    batch = _ragged()
+    want, got = _kernel_both(j_scoring.GapAffine(),
+                             j_scoring.AdaptiveBand(4, 10), batch, 40, 4,
+                             True)
+    _assert_same(want, got)
+    score, steps, m_bt = got[0][:, 0], got[1][:, 0], got[2]
+    late = []
+    for i in range(len(batch[1])):
+        after = range(int(score[i]) + 1, int(steps[i]))
+        if score[i] >= 0 and any(
+                ((m_bt[t // 16, i] >> (2 * (t % 16))) & 3).any()
+                for t in after):
+            late.append(i)
+    assert late, "no pair got codes after its own score step"
 
 
 # -- (c) band against full width when the live span fits --------------------

@@ -6,7 +6,10 @@ It imports no JAX, so it also runs on a machine with a card and no JAX:
 
 Without a card it skips.  Three kernels of ``csrc/wfa.cu`` and
 ``csrc/wfa_meet.cu``: the full-width score and trace kernel, the meet search
-and the compacting band.  Inputs come from the port's seeded read generator;
+and the compacting band (with its edge cases: windows narrower than the live
+span and not a multiple of 32 lanes, windows that move inside a trace word,
+pairs settled at s = 0 and padded rows, a block of 10 kb pairs, characters
+too wide for shared memory, codes past a byte).  Inputs come from the port's seeded read generator;
 every output is an integer, so each is held exactly equal to the plain
 version's (the plain versions are held against the JAX package on the CPU in
 ``test_torch_kernel_wfa.py``, ``test_torch_kernel_meet.py`` and
@@ -18,6 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import scoring as t_scoring  # noqa: E402
+from repro_torch.core.engine import problem_bounds  # noqa: E402
 from repro_torch.core import wavefront as t_wf  # noqa: E402
 from repro_torch.data.reads import ReadPairSpec, generate_pairs  # noqa: E402
 from repro_torch.kernels.wfa import kernel as t_kernel  # noqa: E402
@@ -65,8 +69,8 @@ def test_cuda_kernel_matches_plain(cuda_device):
 
 @pytest.mark.gpu
 def test_cuda_band_kernel_matches_plain(cuda_device):
-    """Every model x heuristic x output on the band (128 and 256 lanes, and
-    512 with the rings in global scratch), ragged pairs of 400 bp."""
+    """Every model x heuristic x output on the band (128, 256 and 512
+    lanes), ragged pairs of 400 bp."""
     P, plen, T, tlen = generate_pairs(ReadPairSpec(
         n_pairs=32, read_len=400, edit_frac=0.05, seed=1))
     args = t_ops._prep(P, T, plen, tlen, 8, device=cuda_device)[:4]
@@ -84,6 +88,202 @@ def test_cuda_band_kernel_matches_plain(cuda_device):
                 want = t_kernel.wfa_plain(*args, **kw)
                 _assert_same(want, got)
                 assert t_kernel.LAUNCHES[key] == before + 1
+
+
+def _band_check(args, **kw):
+    """Band kernel vs plain on the same inputs, one counted launch ->
+    the kernel's outputs."""
+    key = "trace_band" if kw.get("trace") else "score_band"
+    before = t_kernel.LAUNCHES[key]
+    got = t_kernel.wfa_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    want = t_kernel.wfa_plain(*args, **kw)
+    _assert_same(want, got)
+    assert t_kernel.LAUNCHES[key] == before + 1
+    return got
+
+
+def _ragged(seed=9, n=10, drift=30):
+    """Pairs whose target diagonals sit far from k = 0 (tlen != plen); every
+    other pair shares a prefix, the rest are unrelated.  Exact worst-case
+    bounds, so the window, not s_max, limits the fronts."""
+    rng = np.random.default_rng(seed)
+    plen = rng.integers(20, 90, size=n).astype(np.int32)
+    tlen = np.clip(plen + rng.integers(-drift, drift + 1, size=n), 4,
+                   None).astype(np.int32)
+    P = rng.integers(65, 69, size=(n, int(plen.max()))).astype(np.int32)
+    T = rng.integers(65, 69, size=(n, int(tlen.max()))).astype(np.int32)
+    for i in range(0, n, 2):
+        m = min(plen[i], tlen[i])
+        T[i, :m] = P[i, :m]
+    s_max, k_max = problem_bounds(t_scoring.GapAffine(), plen, tlen, None)
+    return P, plen, T, tlen, s_max, t_ops._round_up(2 * k_max + 1,
+                                                     t_ops.LANE)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [16, 40])
+def test_cuda_band_truncating_window(cuda_device, cap):
+    """Per-block windows narrower than the blocks' live span, and not a
+    multiple of 32 lanes: some pairs end unresolved (-1), the same ones as
+    in the plain version (tests/test_torch_band.py holds that against the
+    JAX package on the CPU)."""
+    P, plen, T, tlen, s_max, k_pad = _ragged()
+    args = t_ops._prep(P, T, plen, tlen, 4, device=cuda_device)[:4]
+    for pen in (t_scoring.GapAffine(), t_scoring.Edit()):
+        for heur in (t_scoring.AdaptiveBand(4, 10), t_scoring.ZDrop(12)):
+            for trace in (False, True):
+                got = _band_check(args, pen=pen, s_max=s_max, k_pad=k_pad,
+                                  block_pairs=4, trace=trace, heur=heur,
+                                  band_cap=cap)
+    if cap == 16:
+        assert bool((got[0][:10] == -1).any())
+
+
+def _word_spans(plane, block_pairs):
+    """Per (word, block): the lanes between the lowest and the highest
+    nonzero code word of the block, 0 where it has none."""
+    nz = (plane != 0).view(plane.shape[0], -1, block_pairs,
+                           plane.shape[2]).any(dim=2)
+    lanes = torch.arange(plane.shape[2], device=plane.device)
+    hi = torch.where(nz, lanes, -1).amax(dim=2)
+    lo = torch.where(nz, lanes, plane.shape[2]).amin(dim=2)
+    return (hi - lo + 1).clamp(min=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage", ["design", "one-window"])
+def test_cuda_band_window_moves_inside_a_word(cuda_device, stage):
+    """The window moves inside a 16-step trace word (some word's codes
+    span more lanes than the band): the kernel stages each word on chip by
+    absolute lane, so those words must come out whole.  "one-window"
+    builds wfa.cu with a stage only as wide as the 16-lane band, so every
+    move inside a word writes the staged part to the planes early and the
+    rest of the word ORs onto it."""
+    P, plen, T, tlen, s_max, k_pad = _ragged()
+    args = t_ops._prep(P, T, plen, tlen, 4, device=cuda_device)[:4]
+    cap = 16
+    lib = None
+    if stage == "one-window":
+        from repro_torch.kernels import variants
+        from repro_torch.kernels.wfa import build
+        lib = variants.edited_library(
+            build.LIB, "stage_one_window", "wfa.cu",
+            [("  while (l.SW < 2 * KCP) l.SW *= 2;",
+              "  while (l.SW < kc) l.SW *= 2;")])
+        lib.load()
+    for pen in (t_scoring.GapAffine(), t_scoring.GapLinear(),
+                t_scoring.Edit()):
+        for heur in (t_scoring.AdaptiveBand(4, 10), None):
+            kw = dict(pen=pen, s_max=s_max, k_pad=k_pad, block_pairs=4,
+                      trace=True, heur=heur, band_cap=cap)
+            if lib is None:
+                got = _band_check(args, **kw)
+            else:
+                with variants.loaded_from(build, lib):
+                    got = _band_check(args, **kw)
+            assert int(_word_spans(got[2], 4).max()) > cap
+
+
+@pytest.mark.gpu
+def test_cuda_band_settled_and_padded_rows(cuda_device):
+    """Pairs settled at s = 0 (identical and empty), a block's padded rows
+    and a block of padding only: every block still steps in lockstep until
+    its last pair settles, and the padded block exits at s = 1."""
+    P, plen, T, tlen = generate_pairs(ReadPairSpec(
+        n_pairs=13, read_len=200, edit_frac=0.05, seed=5))
+    w = max(P.shape[1], T.shape[1])
+    P = np.pad(P, ((0, 0), (0, w - P.shape[1])))
+    T = np.pad(T, ((0, 0), (0, w - T.shape[1])))
+    for i in (0, 9):                                       # cost 0
+        T[i], tlen[i] = P[i], plen[i]
+    plen[5] = tlen[5] = 0                                  # empty pair
+    pp, tt, pl, tl, B = t_ops._prep(P, T, plen, tlen, 8, device=cuda_device)
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 8))
+    args = (pad(pp), pad(tt), pad(pl), pad(tl))      # 24 rows: block 2 empty
+    for pen in (t_scoring.GapAffine(), t_scoring.Edit()):
+        for heur, cap in ((t_scoring.AdaptiveBand(), 128),
+                          (t_scoring.ZDrop(8), 40), (None, 96)):
+            for trace in (False, True):
+                got = _band_check(args, pen=pen, s_max=300, k_pad=256,
+                                  block_pairs=8, trace=trace, heur=heur,
+                                  band_cap=cap)
+                score, steps = got[0][:, 0].cpu(), got[1][:, 0].cpu()
+                assert score[[0, 5, 9]].tolist() == [0, 0, 0]
+                assert bool((score[B:] == 0).all())
+                assert steps[16:].tolist() == [1] * 8
+                assert int(steps[0]) > 1
+
+
+@pytest.mark.gpu
+def test_cuda_band_block_of_10kb_pairs(cuda_device):
+    """One block of 8 pairs of 10 kb at E = 3% on the banded path's bounds
+    (GapAffine(4,6,2), AdaptiveBand(), pass 1 of the 16,384 bucket: 128 of
+    4,992 lanes, the shape of block 0 of chip_smoke.py's band phase)."""
+    from repro_torch.core.engine import AlignmentEngine, _fit_width
+    P, plen, T, tlen = generate_pairs(ReadPairSpec(
+        n_pairs=8, read_len=10000, edit_frac=0.03, seed=0))
+    pen, heur = t_scoring.GapAffine(4, 6, 2), t_scoring.AdaptiveBand()
+    eng = AlignmentEngine(pen, backend="kernel", edit_frac=0.03,
+                          device=cuda_device)
+    s_max, k_max = eng._bounds_for_bucket(16384, plen, tlen, False)
+    k_pad = t_ops._round_up(2 * k_max + 1, t_ops.LANE)
+    cap = t_ops._band_lanes(heur.band_cap(2 * k_max + 1), k_pad)
+    assert cap == 128 and k_pad == 4992
+    w = max(P.shape[1], T.shape[1])
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+    args = (to(_fit_width(P, w)), to(_fit_width(T, w)), to(plen[:, None]),
+            to(tlen[:, None]))
+    for trace in (False, True):
+        got = _band_check(args, pen=pen, s_max=s_max, k_pad=k_pad,
+                          block_pairs=8, trace=trace, heur=heur,
+                          band_cap=cap)
+        assert bool((got[0] > 0).all())
+
+
+@pytest.mark.gpu
+def test_cuda_band_wide_rows(cuda_device):
+    """Short pairs in rows of 30,000 columns: the byte characters of a
+    block (8 x 2 x 30,008 bytes) pass the shared memory a CTA may hold, so
+    the launch puts them in global scratch, after the rings (which always
+    live there)."""
+    from repro_torch.kernels.wfa import build
+    P, plen, T, tlen = generate_pairs(ReadPairSpec(
+        n_pairs=16, read_len=100, edit_frac=0.05, seed=3))
+    pp, tt, pl, tl, B = t_ops._prep(P, T, plen, tlen, 8, device=cuda_device)
+    W = 30000
+    cols = lambda t: torch.nn.functional.pad(t, (0, W - t.shape[1]))
+    args = (cols(pp), cols(tt), pl, tl)
+    window = t_scoring.GapAffine().window
+    n = lambda L, trace: build.load().wfa_band_scratch_ints(
+        16, 8, 128, window, 1, trace, L, L)
+    rings = 2 * 3 * window * 8 * 128                # ints, both blocks
+    for trace in (0, 1):
+        assert n(128, trace) == rings
+        assert n(W, trace) == rings + 2 * 8 * 2 * (W + 8) // 4
+    for heur in (t_scoring.AdaptiveBand(), None):
+        for trace in (False, True):
+            _band_check(args, pen=t_scoring.GapAffine(), s_max=200,
+                        k_pad=256, block_pairs=8, trace=trace, heur=heur,
+                        band_cap=128)
+
+
+@pytest.mark.gpu
+def test_cuda_band_kernel_refuses_codes_past_a_byte(cuda_device):
+    """The band kernel compares characters as bytes, so a code outside [0,
+    255] raises before any launch."""
+    P, plen, T, tlen = generate_pairs(ReadPairSpec(
+        n_pairs=8, read_len=50, edit_frac=0.04, seed=2))
+    pp, tt, pl, tl, _ = t_ops._prep(P, T, plen, tlen, 8, device=cuda_device)
+    for bad in (256, -1):
+        pp2 = pp.clone()
+        pp2[3, 1] = bad
+        before = t_kernel.LAUNCHES["score_band"]
+        with pytest.raises(ValueError, match="as bytes"):
+            t_kernel.wfa_cuda(pp2, tt, pl, tl, pen=t_scoring.GapAffine(),
+                              s_max=40, k_pad=256, block_pairs=8,
+                              heur=t_scoring.AdaptiveBand(), band_cap=128)
+        assert t_kernel.LAUNCHES["score_band"] == before
 
 
 # -- the meet search ---------------------------------------------------------
