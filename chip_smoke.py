@@ -10,14 +10,22 @@ Phases (each raises on failure, and the script then exits non-zero):
    ``csrc/wfa_meet.cu``, ``kernels/flash_attention/csrc/
    flash_attention.cu`` and ``flash_wgmma.cu``, one process per source,
    all started together, and prints each kernel's ptxas registers and
-   spills (each meet and band instantiation's too; the wgmma flash body
-   must not spill);
+   spills (each full-width, meet and band instantiation's too; the wgmma
+   flash body must not spill) and the full-width kernel's threads, shared
+   bytes and blocks resident per SM at the main path's shapes;
 3. kernel vs plain — the CUDA WFA kernel against its plain PyTorch version
    on the card, over {GapAffine(4,6,2), GapLinear, Edit} x {exact,
    AdaptiveBand, ZDrop} x {score, trace}, on one wave of 4,096 pairs of
    100 bp at E = 2% with pass-1 bounds and on one exact-bound bucket
    (``k_pad`` 384): scores and steps equal, trace words bit-equal; then
-   both timed at the main path's wave shape (65,536 pairs);
+   both held whole against the plain version and timed at the main path's
+   wave shape (65,536 pairs) and at the recovery shape (``k_pad`` 384; the
+   trace on 8,192 pairs), with both bounds (bytes; integer operations of the
+   cells the recurrence can reach: up to each pair's score for the score
+   variant, up to each block's exit step for the trace); then at the BiWFA
+   path's pass 1 (1,024 pairs of 10 kb, exact, ``k_pad`` 4,992) the score
+   wave and a 64-pair trace launch (39,936 cells a block), each held whole
+   against the plain version, both timed;
 4. meet kernel vs plain — the CUDA meet kernel against its plain version
    over {GapAffine(4,6,2), GapLinear, Edit} x {exact, AdaptiveBand(10,4),
    ZDrop(8)} x boundary states ((M,M); (I,D) and (D,M) for affine) on the
@@ -128,8 +136,12 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM tensor cores, dense bf16
 # in the header note of csrc/wfa_meet.cu)
 MEET_OPS_PER_CELL = 18
 # integer operations of one window cell of the band recurrence (the count in
-# the band kernel's note in csrc/wfa.cu, codes not counted)
+# the band kernel's note in csrc/wfa.cu, codes not counted); the full-width
+# kernel's bound counts the same per reachable cell (a band of k_pad lanes)
 BAND_OPS_PER_CELL = 24
+RECOVERY_TRACE_PAIRS = 8192   # the k_pad 384 trace: 27 words x 8,192 x 384
+                              # x 3 planes x 4 B = 1.0 GB
+FULL_TRACE_PAIRS = 64   # the 10 kb trace: 8 x 4,992 = 39,936 cells a block
 # flash attention: the tolerances of tests/test_kernel_flash.py (max |err|)
 FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 # In bf16 the absolute 2e-2 is about the size of the outputs at S 2,048
@@ -267,36 +279,135 @@ def phase_grid(K, S, eng_for, P, plen, T, tlen, dev):
     return worst
 
 
+def full_bound(K, pen, got, s_max, k_pad, plen, tlen, trace):
+    """Both bounds of one full-width launch -> (ms, "bytes" | "operations",
+    bytes ms, operations ms, reachable cells, operations): :func:`band_bound`
+    with a band of k_pad lanes, counting the cells ``kernel.meet_band`` lets
+    a pair reach.  Under ``trace`` a pair steps until its block exits (the
+    contract gives a settled pair codes to the exit); the score function
+    needs a pair's rows only up to its own score, so there each pair counts
+    rows 1 to min(score, block exit - 1), an unresolved pair to the exit.
+    ``got`` must be outputs held against the plain version."""
+    import numpy as np
+    out_bytes = sum(t.numel() * t.element_size() for t in got)
+    steps = got[1][:, 0].cpu().numpy()
+    if trace:
+        return band_bound(K, pen, steps, k_pad, 8, s_max, k_pad, plen, tlen,
+                          out_bytes)
+    score = got[0][:, 0].cpu().numpy()
+    rows = np.where(score >= 0, np.minimum(score, steps - 1), steps - 1)
+    # band_bound counts rows 1 to steps - 1 of each block: per pair, one
+    # pair a block
+    return band_bound(K, pen, rows + 1, k_pad, 1, s_max, k_pad, plen, tlen,
+                      out_bytes)
+
+
 def phase_wave_timing(K, S, eng, P, plen, T, tlen, dev):
     """Phase 3b: both variants at the main path's wave shape (65,536 pairs
-    of pass 1, GapAffine, exact) -> per-variant timing records."""
+    of pass 1, GapAffine, exact) and at the recovery shape (the exact
+    bounds of the same bucket: s_max 416, k_pad 384; score on the wave,
+    trace on its first RECOVERY_TRACE_PAIRS), each held whole against the
+    plain version and timed -> per-variant timing records."""
     width = 128
     args = wave_inputs(P, plen, T, tlen, WAVE, width, dev)
-    s_max, k_max = eng._bounds_for_bucket(width, plen[:WAVE], tlen[:WAVE],
-                                          False)
-    k_pad = -(-(2 * k_max + 1) // 128) * 128
     out = {}
-    for trace in (False, True):
-        kw = dict(pen=eng.pen, s_max=s_max, k_pad=k_pad, block_pairs=8,
-                  trace=trace, heur=None)
-        got = K.wfa_cuda(*args, **kw)
+    for exact in (False, True):
+        s_max, k_max = eng._bounds_for_bucket(width, plen[:WAVE],
+                                              tlen[:WAVE], exact)
+        k_pad = -(-(2 * k_max + 1) // 128) * 128
+        for trace in (False, True):
+            n = RECOVERY_TRACE_PAIRS if exact and trace else WAVE
+            ins = tuple(a[:n] for a in args)
+            kw = dict(pen=eng.pen, s_max=s_max, k_pad=k_pad, block_pairs=8,
+                      trace=trace, heur=None)
+            got = K.wfa_cuda(*ins, **kw)
+            torch_sync()
+            want = K.wfa_plain(*ins, **kw)
+            err = max_abs_err(got, want)
+            del want
+            if err:
+                raise AssertionError(f"kernel != plain at s_max={s_max} "
+                                     f"k_pad={k_pad} (trace={trace}): "
+                                     f"max|err|={err}")
+            bound, by, bytes_ms, ops_ms, cells, ops = full_bound(
+                K, eng.pen, got, s_max, k_pad, plen[:n], tlen[:n], trace)
+            del got
+            k_ms = cuda_ms(lambda: K.wfa_cuda(*ins, **kw), 20)
+            p_ms = cuda_ms(lambda: K.wfa_plain(*ins, **kw), 2)
+            name = ("wfa_trace" if trace else "wfa_score") + (
+                "_recovery" if exact else "")
+            out[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                             bound_ms=bound, bound_by=by,
+                             bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
+                             pairs=n, s_max=s_max, k_pad=k_pad,
+                             lanes=K.full_lanes(eng.pen, s_max, k_pad))
+            log(f"[wave] {name}: {n} pairs, s_max={s_max} k_pad={k_pad} "
+                f"(lanes {out[name]['lanes']}): equal; kernel {k_ms:.4f} "
+                f"ms, plain {p_ms:.3f} ms, bound {bound:.5f} ms ({by}): "
+                f"bytes {bytes_ms:.5f} ms, operations {ops_ms:.5f} ms "
+                f"({cells:,} reachable cells x {BAND_OPS_PER_CELL} + one "
+                f"compare per aligned column = {ops:,})")
+    return out
+
+
+def phase_full_10kb(K, S, dev):
+    """Phase 3c: the full-width kernel at the BiWFA path's pass 1 (1,024
+    pairs of 10 kb at E = 3%, GapAffine(4,6,2), exact, s_max 4,928, k_pad
+    4,992): the score wave, and a trace launch of its first
+    FULL_TRACE_PAIRS pairs (39,936 cells a block); each held whole against
+    the plain version (so every block's exit step that the bound counts is
+    checked), the kernel timed on the whole launch and on block 0 -> timing
+    records."""
+    from repro_torch.core.engine import AlignmentEngine
+    from repro_torch.data.reads import ReadPairSpec, generate_pairs
+    P, plen, T, tlen = generate_pairs(ReadPairSpec(
+        n_pairs=LONG_PAIRS, read_len=LONG_LEN, edit_frac=LONG_EDIT, seed=0))
+    pen = S.GapAffine(4, 6, 2)
+    eng = AlignmentEngine(pen, backend="kernel", edit_frac=LONG_EDIT,
+                          device=dev)
+    s1, k1 = eng._bounds_for_bucket(LONG_BUCKET, plen, tlen, False)
+    k_pad = -(-(2 * k1 + 1) // 128) * 128
+    args = wave_inputs(P, plen, T, tlen, LONG_PAIRS,
+                       max(P.shape[1], T.shape[1]), dev)
+    out = {}
+    for trace, pairs in ((False, LONG_PAIRS), (True, FULL_TRACE_PAIRS)):
+        wave = tuple(a[:pairs] for a in args)
+        kw = dict(pen=pen, s_max=s1, k_pad=k_pad, block_pairs=8,
+                  trace=trace)
+        got = K.wfa_cuda(*wave, **kw)
         torch_sync()
-        want = K.wfa_plain(*args, **kw)
+        t0 = time.perf_counter()
+        want = K.wfa_plain(*wave, **kw)
+        torch_sync()
+        p_ms = (time.perf_counter() - t0) * 1e3
         err = max_abs_err(got, want)
+        del want
         if err:
-            raise AssertionError(f"kernel != plain at the wave shape "
+            raise AssertionError(f"kernel != plain at the 10 kb shape "
                                  f"(trace={trace}): max|err|={err}")
-        out_bytes = sum(t.numel() * t.element_size() for t in got)
-        k_ms = cuda_ms(lambda: K.wfa_cuda(*args, **kw), 20)
-        p_ms = cuda_ms(lambda: K.wfa_plain(*args, **kw), 2)
-        bound, by, nbytes, ops = kernel_bound(plen[:WAVE], tlen[:WAVE],
-                                              out_bytes)
-        name = "wfa_trace" if trace else "wfa_score"
+        bound, by, bytes_ms, ops_ms, cells, ops = full_bound(
+            K, pen, got, s1, k_pad, plen[:pairs], tlen[:pairs], trace)
+        steps = got[1][:, 0].cpu().numpy()
+        score = got[0][:, 0].cpu().numpy()
+        del got
+        k_ms = cuda_ms(lambda: K.wfa_cuda(*wave, **kw), 3)
+        k_ms_n = cuda_ms(lambda: K.wfa_cuda(*(a[:8] for a in wave), **kw), 3)
+        name = "wfa_trace_10kb" if trace else "wfa_score_10kb"
         out[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                         bound_ms=bound, bound_by=by)
-        log(f"[wave] {name}: {WAVE} pairs, s_max={s_max} k_pad={k_pad}: "
-            f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
-            f"{bound:.4f} ms ({by}: {nbytes} bytes, {ops} compares)")
+                         plain_pairs=pairs, block0_ms=k_ms_n, pairs=pairs,
+                         bound_ms=bound, bound_by=by,
+                         bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
+                         s_max=s1, k_pad=k_pad, block0_steps=int(steps[0]),
+                         max_steps=int(steps.max()))
+        log(f"[full] {name}: {pairs} pairs of {LONG_LEN} bp, s_max={s1} "
+            f"k_pad={k_pad}; scores {int(score.min())}-{int(score.max())}, "
+            f"block exit steps: block 0 {int(steps[0])}, max "
+            f"{int(steps.max())}: kernel {k_ms:.3f} ms ({k_ms_n:.3f} ms on "
+            f"block 0), plain {p_ms:.1f} ms on the whole launch (equal); "
+            f"bound {bound:.5f} ms ({by}): bytes {bytes_ms:.5f} ms, "
+            f"operations {ops_ms:.5f} ms ({cells:,} reachable cells x "
+            f"{BAND_OPS_PER_CELL} + one compare per aligned column = "
+            f"{ops:,})")
     return out
 
 
@@ -1420,6 +1531,32 @@ def phase_serve_long(FK, dev, card):
     return dict(launches=launches, max_abs_err=err, share=share)
 
 
+def full_occupancy(K, S, lib):
+    """The full-width launches of the main path's shapes (GapAffine(4,6,2),
+    exact, 8 pairs a block: pass 1 and recovery at 100 bp, pass 1 at 10
+    kb; score and trace) -> {shape: threads, dynamic shared bytes, blocks
+    resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)}."""
+    import ctypes
+    pen = S.GapAffine(4, 6, 2)
+    out = {}
+    for tag, B, L, s_max, k_pad in (("100bp", WAVE, 128, 38, 128),
+                                    ("recovery", WAVE, 128, 416, 384),
+                                    ("10kb", LONG_PAIRS, 10028, 4928, 4992)):
+        for trace in (0, 1):
+            shape = (ctypes.c_int * 6)()
+            rc = lib.wfa_full_shape(B, 8, k_pad,
+                                    *K.full_lanes(pen, s_max, k_pad),
+                                    pen.window, pen.e, 1, trace, 0, L, L,
+                                    shape)
+            if rc != 0 or shape[2] < 1:
+                raise AssertionError(f"the full-width kernel does not fit "
+                                     f"an SM at {tag} (rc {rc}, "
+                                     f"{list(shape)})")
+            out[f"{tag} {'trace' if trace else 'score'}"] = dict(
+                threads=shape[0], smem=shape[1], blocks_per_sm=shape[2])
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1487,6 +1624,7 @@ def main() -> int:
                          r"(\d+) bytes spill stores.*?Used (\d+) registers",
                          build.BUILD_INFO["log"], re.S)
     for label, sel in (("all", lambda n: True),
+                       ("full", lambda n: "wfa_full_kernel" in n),
                        ("band", lambda n: "wfa_band_kernel" in n)):
         got = [(int(sp), int(r)) for n, sp, r in entries if sel(n)]
         if got:
@@ -1497,7 +1635,7 @@ def main() -> int:
 
     def short(name):
         """wfa_kernel<1,1,2,16> from the mangled template name."""
-        m = re.search(r"(wfa_(?:band_|meet_)?kernel)I(.*?)EEv", name)
+        m = re.search(r"(wfa_(?:band_|meet_|full_)?kernel)I(.*?)EEv", name)
         if not m:
             return name
         args = re.findall(r"L[bi](\d+)E", m.group(2))
@@ -1508,6 +1646,14 @@ def main() -> int:
     band_regs = [f"{short(n)} {r} registers, {sp} B spilled"
                  for n, sp, r in entries if "wfa_band_kernel" in n]
     log("[build] ptxas (band): " + "; ".join(band_regs))
+    full_regs = [f"{short(n)} {r} registers, {sp} B spilled"
+                 for n, sp, r in entries if "wfa_full_kernel" in n]
+    log("[build] ptxas (full width): " + "; ".join(full_regs))
+    full_occ = full_occupancy(K, S, build.load())
+    log("[build] full width, blocks resident per SM at the main path's "
+        "shapes (GapAffine(4,6,2)): " + "; ".join(
+            f"{k}: {v['threads']} threads, {v['smem']:,} B shared, "
+            f"{v['blocks_per_sm']} blocks" for k, v in full_occ.items()))
     spilled = [f"{short(n)} {sp} B" for n, sp, _ in entries if int(sp)]
     if spilled:
         log(f"[build] spill stores: {', '.join(spilled)}")
@@ -1520,6 +1666,9 @@ def main() -> int:
     worst = phase_grid(K, S, eng_for, P, plen, T, tlen, dev)
     timing = phase_wave_timing(K, S, eng_for(S.GapAffine(4, 6, 2)), P, plen,
                                T, tlen, dev)
+    t0 = time.perf_counter()
+    timing.update(phase_full_10kb(K, S, dev))
+    log(f"[full] 10 kb phase in {time.perf_counter() - t0:.1f}s")
 
     # 4. meet kernel vs plain on the card
     t0 = time.perf_counter()
@@ -1590,13 +1739,29 @@ def main() -> int:
     kernels = []
     for name, variant in (("wfa_score", "score"), ("wfa_trace", "trace")):
         t = timing[name]
+        shapes = ("100bp", "recovery", "10kb")
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": "src/repro/kernels/wfa/kernel.py:334",
             "launches": launches[variant] + b_launches[variant],
-            "max_abs_err": max(worst, t["max_abs_err"]),
+            "max_abs_err": max(worst, *(timing[f"{name}{x}"]["max_abs_err"]
+                                        for x in ("", "_recovery", "_10kb"))),
+            # kernel and plain on the same 65,536-pair wave of 100 bp
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            # both bounds: the bytes moved and the integer operations of
+            # the cells the recurrence can reach (full_bound)
+            "bytes_bound_ms": t["bytes_bound_ms"],
+            "ops_bound_ms": t["ops_bound_ms"],
+            # the recovery shape (k_pad 384) and the 10 kb pass 1 (plain
+            # on the whole launch; block0_ms the kernel on the first 8)
+            "recovery": timing[f"{name}_recovery"],
+            "wave_10kb": timing[f"{name}_10kb"],
+            "registers": [r for r in full_regs
+                          if r.startswith(f"wfa_full_kernel<1,"
+                                          f"{int(variant == 'trace')},")],
+            "blocks_per_sm": {x: full_occ[f"{x} {variant}"]["blocks_per_sm"]
+                              for x in shapes},
             "library_ms": None})
     kernels.append({
         "name": "wfa_meet", "route": "cuda",

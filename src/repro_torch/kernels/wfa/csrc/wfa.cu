@@ -2,42 +2,22 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/wfa/kernel.py::wfa_pallas
 // (body _make_kernel), its score variant (trace=False) and its packed-trace
-// variant (trace=True), at full width (wfa_kernel) and on the compacting
-// band, band_cap set (wfa_band_kernel, below).  Same inputs, same outputs,
-// bit for bit: score [B,1] (-1 over s_max), steps [B,1] (the block's exit
-// step) and, with TRACE, the [NW, B, k_pad] int32 words of 2-bit
-// provenance codes (16 score steps per word).
+// variant (trace=True), on the compacting band, band_cap set
+// (wfa_band_kernel), and at full width (wfa_full_kernel).  Same inputs, same
+// outputs, bit for bit: score [B,1] (-1 over s_max), steps [B,1] (the
+// block's exit step) and, with TRACE, the [NW, B, k_pad] int32 words of
+// 2-bit provenance codes (16 score steps per word).
 //
-// Design.  One CTA per block of BP pairs, threads over the BP * k_pad
-// (pair, lane) cells; all k_pad lanes run, centred at k_pad/2, so the trace
-// words equal the TPU kernel's.  Each score step is two phases:
-//   A  every cell reads rows s-x, s-(o+e), s-e of the rings at lanes k-1,
-//      k, k+1, forms X/I/D, extends its own diagonal (a bounds-checked LCP
-//      loop), ORs its codes into the current trace word (a register), stores
-//      the unpruned fronts into row s%W and feeds the per-pair reductions
-//      (target reached; AdaptiveBand's min and count; ZDrop's max) through
-//      shared-memory atomics;
-//   B  (after a barrier) a heuristic clears the lanes it prunes in row s%W
-//      (M's mask prunes I and D too) and each pair's score is settled.
-// Row s%W is never read during step s (every delta is >= 1 and < W), so
-// phase A may write it in place.  The block exits when none of its pairs is
-// unresolved (__syncthreads_or) or s passes s_max.  Trace words are stored
-// every 16 steps and at the exit; codes come from the pre-prune fronts.
-//
-// Rings live in dynamic shared memory when n_rings*W*BP*k_pad*4 bytes fit
-// the device's per-block opt-in (the paper's pass 1: 3*9*8*128*4 = 110,592
-// bytes), else in a global scratch of wfa_scratch_ints() ints that the
-// wrapper allocates; one generic pointer serves both.  This file alone
-// decides the layout.
-//
-// What bounds it.  Per step and cell it does a few dozen integer operations
-// and a data-dependent extension loop; the ring traffic stays on chip and
-// the inputs are read once.  The work is latency- and issue-bound integer
-// code with many idle lanes (k_pad = 128 lanes for about 2*k_max+1 = 35
-// live diagonals at E = 2%): the card's memory rate is far from the limit.
-// This first version keeps the design simple (one thread per cell, block
-// barriers each step); packing sequences, skipping dead lanes and
-// persistent CTAs are the levers for later work.
+// Both kernels run one CTA per block of BP pairs, whose pairs step in
+// lockstep until none is unresolved (or s passes s_max); settled pairs keep
+// adding codes until then.  Each score step reads rows s-x, s-(o+e), s-e of
+// the rings at lanes k, k-1, k+1, forms X/I/D, extends M along its diagonal
+// (eight byte characters a compare), ORs the 2-bit codes of the pre-prune
+// fronts into the step's word, stores the fronts into row s and feeds the
+// per-pair reductions (target reached; AdaptiveBand's min and count;
+// ZDrop's max); after a barrier a heuristic clears the lanes it prunes (M's
+// mask prunes I and D too).  Row s is never read during step s (every delta
+// is >= 1 and below the ring's depth), so the step may write it in place.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,33 +27,15 @@ constexpr int NEG = -(1 << 20);
 constexpr int THRESH = NEG / 2;
 constexpr int BIG = 1 << 20;
 constexpr int CELLS_PER_WORD = 16;
-constexpr int MAX_THREADS = 1024;
-constexpr int HEAD_ARRAYS = 6;  // [BP] int arrays ahead of the rings
 
 enum Heur { HEUR_NONE = 0, HEUR_ADAPTIVE = 1, HEUR_ZDROP = 2 };
-
-struct Params {
-  const int* pattern;  // [B, Lp]
-  const int* text;     // [B, Lt]
-  const int* plen;     // [B]
-  const int* tlen;     // [B]
-  int* score;          // [B]
-  int* steps;          // [B]
-  int* m_bt;           // [NW, B, k_pad] (TRACE)
-  int* i_bt;           // affine TRACE only
-  int* d_bt;
-  int* scratch;        // global rings when they do not fit shared memory
-  int B, Lp, Lt, BP, k_pad, s_max, x, o, e, W, hp1, hp2, ring_in_smem;
-};
-
-size_t head_bytes(int BP) { return (size_t)HEAD_ARRAYS * BP * sizeof(int); }
 
 size_t ring_bytes(int BP, int width, int W, int affine) {
   return (size_t)(affine ? 3 : 1) * W * BP * width * sizeof(int);
 }
 
 // Whether `bytes` fit in the shared memory one block may opt into on the
-// current device (227 KB on Hopper); else the rings go to a global scratch.
+// current device (227 KB on Hopper).
 bool fits_smem(size_t bytes) {
   int dev = 0, optin = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -81,10 +43,6 @@ bool fits_smem(size_t bytes) {
                              dev) != cudaSuccess)
     return false;
   return bytes <= (size_t)optin;
-}
-
-bool rings_in_smem(int BP, int k_pad, int W, int affine) {
-  return fits_smem(head_bytes(BP) + ring_bytes(BP, k_pad, W, affine));
 }
 
 __device__ __forceinline__ int extend(int M, int k, const int* __restrict__ prow,
@@ -156,20 +114,8 @@ __device__ __forceinline__ Cell step_cell(int m_x, int i_open, int i_ext,
   return r;
 }
 
-// Phase A: a live cell feeds its pair's heuristic reductions (AdaptiveBand:
-// least remaining distance and live lanes; ZDrop: furthest antidiagonal).
-template <int HEUR>
-__device__ __forceinline__ void heur_reduce(int* red, int* live, int M, int k,
-                                            int pl, int tl) {
-  if (HEUR == HEUR_ADAPTIVE) {
-    atomicMin(red, max(tl - M, pl - (M - k)));
-    atomicAdd(live, 1);
-  } else if (HEUR == HEUR_ZDROP) {
-    atomicMax(red, 2 * M - k);
-  }
-}
-
-// Phase B: whether the heuristic keeps a cell whose M is `M` (keep_mask).
+// After the step's reductions: whether the heuristic keeps a cell whose M
+// is `M` (keep_mask).
 template <int HEUR>
 __device__ __forceinline__ bool heur_keep(int M, int k, int pl, int tl,
                                           int red, int live, int hp1,
@@ -179,165 +125,6 @@ __device__ __forceinline__ bool heur_keep(int M, int k, int pl, int tl,
     return live <= hp1 || max(tl - M, pl - (M - k)) - red <= hp2;
   if (HEUR == HEUR_ZDROP) return red - (2 * M - k) <= hp1;
   return true;
-}
-
-template <bool AFFINE, bool TRACE, int HEUR, int CPT>
-__global__ void __launch_bounds__(MAX_THREADS)
-    wfa_kernel(const Params p) {
-  extern __shared__ int smem[];
-  const int BP = p.BP, KP = p.k_pad, W = p.W;
-  const int cells = BP * KP;
-  const int kc = KP / 2;
-  const int pair0 = blockIdx.x * BP;
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  // TRACE keeps CPT words per plane in registers: its loop bound must be a
-  // compile-time constant; the score variant loops over a runtime count.
-  const int ncell = TRACE ? CPT : (cells + nthr - 1) / nthr;
-
-  int* s_score = smem;           // [BP] per-pair score (-1 unresolved)
-  int* s_reach = smem + BP;      // [BP] target reached this step
-  int* s_red = smem + 2 * BP;    // [BP] AdaptiveBand min d / ZDrop max h+v
-  int* s_live = smem + 3 * BP;   // [BP] AdaptiveBand live lanes
-  int* s_plen = smem + 4 * BP;
-  int* s_tlen = smem + 5 * BP;
-  const int n_rings = AFFINE ? 3 : 1;
-  const size_t plane = (size_t)W * cells;
-  int* ring = p.ring_in_smem
-                  ? smem + HEAD_ARRAYS * BP
-                  : p.scratch + (size_t)blockIdx.x * n_rings * plane;
-  int* m_ring = ring;
-  int* i_ring = ring + plane;
-  int* d_ring = ring + 2 * plane;
-  const int red_init = HEUR == HEUR_ZDROP ? -BIG : BIG;
-
-  if (tid < BP) {
-    // a length past its row would read out of bounds: clamp it to the row
-    s_plen[tid] = min(p.plen[pair0 + tid], p.Lp);
-    s_tlen[tid] = min(p.tlen[pair0 + tid], p.Lt);
-    s_reach[tid] = 0;
-    s_red[tid] = red_init;
-    s_live[tid] = 0;
-  }
-  __syncthreads();
-
-  // s = 0: M_0[k=0] = LCP(p, t); I/D invalid.
-  for (int q = 0; q < ncell; ++q) {
-    const int c = tid + q * nthr;
-    if (c >= cells) break;
-    const int b = c / KP, k = c - b * KP - kc;
-    const int pair = pair0 + b;
-    const int pl = s_plen[b], tl = s_tlen[b];
-    const int M = extend(k == 0 ? 0 : NEG, k, p.pattern + (size_t)pair * p.Lp,
-                         p.text + (size_t)pair * p.Lt, pl, tl);
-    m_ring[c] = M;
-    if (AFFINE) {
-      i_ring[c] = NEG;
-      d_ring[c] = NEG;
-    }
-    if (k == tl - pl && M >= tl && M > THRESH) s_reach[b] = 1;
-  }
-  __syncthreads();
-  if (tid < BP) {
-    s_score[tid] = s_reach[tid] ? 0 : -1;
-    s_reach[tid] = 0;
-  }
-  int s = 1;
-  bool cont = __syncthreads_or(tid < BP && s_score[tid] < 0) && s <= p.s_max;
-
-  uint32_t wm[TRACE ? CPT : 1], wi[TRACE ? CPT : 1], wd[TRACE ? CPT : 1];
-#pragma unroll
-  for (int q = 0; q < (TRACE ? CPT : 1); ++q) wm[q] = wi[q] = wd[q] = 0u;
-
-  auto rd = [&](const int* rg, int delta, int b, int j) -> int {
-    if (s < delta || j < 0 || j >= KP) return NEG;
-    return rg[(size_t)((s - delta) % W) * cells + b * KP + j];
-  };
-  auto flush = [&](int word) {
-#pragma unroll
-    for (int q = 0; q < (TRACE ? CPT : 1); ++q) {
-      const int c = tid + q * nthr;
-      if (c < cells) {
-        const int b = c / KP, j = c - b * KP;
-        const size_t at = ((size_t)word * p.B + pair0 + b) * KP + j;
-        p.m_bt[at] = (int)wm[q];
-        if (AFFINE) {
-          p.i_bt[at] = (int)wi[q];
-          p.d_bt[at] = (int)wd[q];
-        }
-      }
-      wm[q] = wi[q] = wd[q] = 0u;
-    }
-  };
-
-  while (cont) {
-    const size_t row = (size_t)(s % W) * cells;
-    const int sh = 2 * (s % CELLS_PER_WORD);
-    // ---- phase A: candidates, extension, codes, unpruned store ----------
-#pragma unroll
-    for (int q = 0; q < ncell; ++q) {
-      const int c = tid + q * nthr;
-      if (c < cells) {
-        const int b = c / KP, j = c - b * KP, k = j - kc;
-        const int pair = pair0 + b;
-        const int pl = s_plen[b], tl = s_tlen[b];
-        const int oe = AFFINE ? p.o + p.e : p.e;
-        const Cell st = step_cell<AFFINE>(
-            rd(m_ring, p.x, b, j), rd(m_ring, oe, b, j - 1),
-            AFFINE ? rd(i_ring, p.e, b, j - 1) : NEG, rd(m_ring, oe, b, j + 1),
-            AFFINE ? rd(d_ring, p.e, b, j + 1) : NEG, k, pl, tl,
-            p.pattern + (size_t)pair * p.Lp, p.text + (size_t)pair * p.Lt);
-        if (TRACE) {
-          wm[TRACE ? q : 0] |= st.cm << sh;
-          wi[TRACE ? q : 0] |= st.ci << sh;
-          wd[TRACE ? q : 0] |= st.cd << sh;
-        }
-        m_ring[row + c] = st.M;
-        if (AFFINE) {
-          i_ring[row + c] = st.I;
-          d_ring[row + c] = st.D;
-        }
-        if (st.M > THRESH) {
-          if (k == tl - pl && st.M >= tl) s_reach[b] = 1;
-          heur_reduce<HEUR>(&s_red[b], &s_live[b], st.M, k, pl, tl);
-        }
-      }
-    }
-    __syncthreads();
-    // ---- phase B: prune, settle scores, flush full trace words ----------
-    if (HEUR != HEUR_NONE) {
-      for (int q = 0; q < ncell; ++q) {
-        const int c = tid + q * nthr;
-        if (c >= cells) break;
-        const int b = c / KP, k = c - b * KP - kc;
-        if (!heur_keep<HEUR>(m_ring[row + c], k, s_plen[b], s_tlen[b],
-                             s_red[b], s_live[b], p.hp1, p.hp2)) {
-          m_ring[row + c] = NEG;
-          if (AFFINE) {
-            i_ring[row + c] = NEG;
-            d_ring[row + c] = NEG;
-          }
-        }
-      }
-    }
-    if (tid < BP && s_score[tid] < 0 && s_reach[tid]) s_score[tid] = s;
-    if (TRACE && s % CELLS_PER_WORD == CELLS_PER_WORD - 1)
-      flush(s / CELLS_PER_WORD);
-    __syncthreads();
-    if (tid < BP) {
-      s_reach[tid] = 0;
-      s_red[tid] = red_init;
-      s_live[tid] = 0;
-    }
-    ++s;
-    cont = __syncthreads_or(tid < BP && s_score[tid] < 0) && s <= p.s_max;
-  }
-  // the last step's partial word (steps since the last flush)
-  if (TRACE && s - 1 >= 1 && (s - 1) % CELLS_PER_WORD != CELLS_PER_WORD - 1)
-    flush((s - 1) / CELLS_PER_WORD);
-  if (tid < BP) {
-    p.score[pair0 + tid] = s_score[tid];
-    p.steps[pair0 + tid] = s;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -814,43 +601,416 @@ __global__ void __launch_bounds__(BAND_THREADS)
   }
 }
 
-template <bool A, bool T, int H, int C>
-cudaError_t launch_one(const Params& p, int threads, size_t smem,
-                       cudaStream_t stream) {
-  auto kern = wfa_kernel<A, T, H, C>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kern<<<p.B / p.BP, threads, smem, stream>>>(p);
-  return cudaGetLastError();
+// ---------------------------------------------------------------------------
+// Full width (TPU kernels 1 and 2: wfa_pallas without band_cap,
+// repro/kernels/wfa/kernel.py:110-331).
+//
+// What it computes.  k_pad diagonal lanes per pair, centred at k_pad/2, as
+// the band above with a window that never moves and covers every lane a
+// front can reach.
+//
+// What bounds it.  As the band: a block is a serial chain of steps, each
+// about 24 integer operations per reachable cell (chip_smoke.py's
+// BAND_OPS_PER_CELL) plus the compares of the extension; at 100 bp the
+// steps are few (under 39) and short, so the blocks resident on an SM and
+// the latency of a step's barriers set the rate; at 10 kb exact the live
+// span grows by a lane either side every e steps (about 1,500 lanes a pair
+// at the exit), and the ring traffic of the live lanes is the step.
+//
+// Design.
+//   * Static lanes.  No front reaches past [lo, lo + KC), the hull up to
+//     s_max of kernel.meet_band's forward M range (kernel.full_lanes: kc +-
+//     16 of 128 lanes at the 100 bp pass 1, all of k_pad at 10 kb): rings
+//     and threads cover KCP = KC rounded up to 32 lanes a pair, in
+//     chunks of 32; lanes past KC are never live and get no code, as the TPU
+//     kernel's edge lanes.
+//   * Only live chunks work.  Per pair and ring row, the live span (as the
+//     band keeps it); a warp works on a chunk only where the spans of the
+//     rows the step reads reach it (one lane either side for the gaps), a
+//     read outside its row's span is NEG (lanes outside a span are never
+//     stored), and without TRACE a settled pair's warps do nothing.
+//   * wpp warps per pair (1 at 100 bp: 256 threads a block of 8 pairs; 4 at
+//     10 kb), each on every wpp-th reachable chunk of its pair; with more
+//     than 32 pairs a block, each warp takes every 32nd pair.
+//   * Characters narrowed to bytes in the prologue, eight compared a trip;
+//     a block that holds a code outside [0, 255] (found in the prologue) runs
+//     the same body on its int32 rows, so every code is exact without a
+//     check on the host.
+//   * Rings of depth W for M and e + 1 for I and D (the 100 bp pass 1: 30,720
+//     bytes), in shared memory after the characters where they fit, else in
+//     global scratch.
+//   * Per-pair reductions by warp (__reduce_*_sync over the warp's chunks of
+//     the pair), one shared atomic per warp and value into small rings
+//     indexed by s; the open pairs a bit mask kept by warp 0, which settles
+//     the scores.  One barrier a step without a heuristic, two with one.
+//   * Each nonzero code ORed straight into its word of the planes by
+//     atomicOr, a reduction at L2 that the thread does not wait for (the
+//     wrapper zeroes the planes): at 100 bp as fast as staging the words in
+//     shared memory and storing them once per 16 steps, which cannot hold
+//     the words of a 10 kb block, and faster than a load and a store
+//     (full_variants.py, PERF.md).  Any BP x k_pad runs.
+constexpr int FULL_THREADS = 1024;
+constexpr int FULL_WARPS_PER_PAIR = 4;   // at most
+
+struct FullParams {
+  const int* pattern;  // [B, Lp]
+  const int* text;     // [B, Lt]
+  const int* plen;     // [B]
+  const int* tlen;     // [B]
+  int* score;          // [B]
+  int* steps;          // [B]
+  uint32_t* bt[3];     // [NW, B, k_pad] code planes M, I, D (TRACE)
+  int* grings;         // [nblk][full_ring_ints] unless in shared memory
+  uint8_t* gseq;       // [nblk][BP][rp + rt] unless in shared memory
+  int B, Lp, Lt, BP, k_pad, lo, KC, s_max, x, o, e, Wm, Wg, hp1, hp2, wpp;
+  int rings_smem, seq_smem;
+};
+
+// Ints of a block's rings: M of depth Wm, I and D of depth Wg.
+__host__ __device__ inline int full_ring_ints(int BP, int KCP, int Wm, int Wg,
+                                              bool affine) {
+  return (Wm + (affine ? 2 * Wg : 0)) * BP * KCP;
 }
 
-template <bool A, bool T, int H>
-cudaError_t by_cpt(const Params& p, int cpt, int threads, size_t smem,
-                   cudaStream_t stream) {
-  if constexpr (!T) {
-    return launch_one<A, false, H, 1>(p, threads, smem, stream);
-  } else {
-    switch (cpt) {
-      case 1: return launch_one<A, true, H, 1>(p, threads, smem, stream);
-      case 2: return launch_one<A, true, H, 2>(p, threads, smem, stream);
-      case 4: return launch_one<A, true, H, 4>(p, threads, smem, stream);
-      case 8: return launch_one<A, true, H, 8>(p, threads, smem, stream);
-      case 16: return launch_one<A, true, H, 16>(p, threads, smem, stream);
-      default: return cudaErrorInvalidValue;
+// Ints of the kernel's small shared arrays (its layout in wfa_full_kernel).
+__host__ __device__ inline int full_head_ints(int BP, int Wm) {
+  const int NRW = (BP + 31) / 32;
+  return 2 * span_depth(Wm) * BP + 3 * BP + (2 + STEP_SLOTS) * NRW +
+         2 * STEP_SLOTS * BP;
+}
+
+// One launch's shape: threads, where its arrays live, what it needs.
+struct FullLayout {
+  int threads, wpp, rings_smem, seq_smem;
+  size_t smem;              // dynamic shared bytes
+  long long scratch_ints;   // global scratch of the whole launch
+};
+
+FullLayout full_layout(int B, int BP, int KC, int Wm, int Wg, int affine,
+                       int Lp, int Lt) {
+  const int KCP = band_lanes(KC), nch = KCP / 32;
+  FullLayout l{};
+  l.wpp = min(FULL_WARPS_PER_PAIR, max(1, nch / 2));
+  l.wpp = min(l.wpp, max(1, 32 / BP));
+  l.threads = 32 * (BP < 32 ? BP * l.wpp : 32);
+  const size_t seq = (size_t)BP * (seq_row_bytes(Lp) + seq_row_bytes(Lt));
+  const size_t rings =
+      (size_t)full_ring_ints(BP, KCP, Wm, Wg, affine) * sizeof(int);
+  // shared memory for the characters first, then the rings
+  l.smem = (size_t)full_head_ints(BP, Wm) * sizeof(int);
+  l.seq_smem = fits_smem(l.smem + seq);
+  l.smem += l.seq_smem ? seq : 0;
+  l.rings_smem = fits_smem(l.smem + rings);
+  l.smem += l.rings_smem ? rings : 0;
+  const long long nblk = BP > 0 ? B / BP : 0;
+  l.scratch_ints = nblk * (long long)((l.rings_smem ? 0 : rings) +
+                                      (l.seq_smem ? 0 : seq)) / 4;
+  return l;
+}
+
+template <bool AFFINE, bool TRACE, int HEUR>
+__global__ void __launch_bounds__(FULL_THREADS)
+    wfa_full_kernel(const FullParams p) {
+  extern __shared__ int smem[];
+  const int BP = p.BP, KP = p.k_pad, KC = p.KC, KCP = band_lanes(KC);
+  const int Wm = p.Wm, Wg = p.Wg, D = span_depth(Wm), NRW = (BP + 31) / 32;
+  const int kc_full = KP / 2, lo = p.lo, pair0 = blockIdx.x * BP;
+  const int tid = threadIdx.x, nthr = blockDim.x, lane = tid & 31;
+  const int wpp = p.wpp, sub = (tid >> 5) % wpp;
+  const int b_first = (tid >> 5) / wpp, b_step = (nthr >> 5) / wpp;
+  constexpr int n_planes = AFFINE ? 3 : 1;
+  const int row_ints = BP * KCP;          // one ring row of the block
+
+  // full_head_ints(BP, Wm) ints: the spans first (8-byte aligned)
+  int2* s_span = reinterpret_cast<int2*>(smem);  // [D][BP] live lanes of rows
+  int* s_plen = reinterpret_cast<int*>(s_span + D * BP);
+  int* s_tlen = s_plen + BP;
+  int* s_score = s_tlen + BP;             // [BP], settled by warp 0
+  unsigned* s_open = reinterpret_cast<unsigned*>(s_score + BP);  // [2][NRW]
+  unsigned* s_reach = s_open + 2 * NRW;   // [4][NRW] pairs reached at step s
+  int* s_red = reinterpret_cast<int*>(s_reach + STEP_SLOTS * NRW);  // [4][BP]
+  int* s_live = s_red + STEP_SLOTS * BP;                            // [4][BP]
+  // then the characters and the rings, each where it fits
+  uint8_t* dyn = reinterpret_cast<uint8_t*>(s_live + STEP_SLOTS * BP);
+  const int rp = seq_row_bytes(p.Lp), rpt = rp + seq_row_bytes(p.Lt);
+  uint8_t* sq = p.gseq + (size_t)blockIdx.x * BP * rpt;
+  if (p.seq_smem) {
+    sq = dyn;
+    dyn += (size_t)BP * rpt;
+  }
+  const int ring_n = full_ring_ints(BP, KCP, Wm, Wg, AFFINE);
+  int* mr = p.grings + (size_t)blockIdx.x * ring_n;
+  if (p.rings_smem) {
+    mr = reinterpret_cast<int*>(dyn);
+    dyn += (size_t)ring_n * sizeof(int);
+  }
+  int* ir = mr + Wm * row_ints;
+  int* dr = ir + Wg * row_ints;
+  const int red_init = HEUR == HEUR_ZDROP ? -BIG : BIG;
+  const int2 empty = make_int2(EMPTY_LO, -EMPTY_LO);
+
+  for (int i = tid; i < D * BP; i += nthr) s_span[i] = empty;
+  for (int b = tid; b < BP; b += nthr) {
+    // a length past its row would read out of bounds: clamp it to the row
+    s_plen[b] = min(p.plen[pair0 + b], p.Lp);
+    s_tlen[b] = min(p.tlen[pair0 + b], p.Lt);
+    s_score[b] = -1;
+  }
+  for (int w = tid; w < NRW; w += nthr)   // every pair open before step 0
+    s_open[w] = w < BP / 32 ? FULL : (1u << (BP & 31)) - 1u;
+  for (int i = tid; i < STEP_SLOTS * NRW; i += nthr) s_reach[i] = 0u;
+  for (int i = tid; i < STEP_SLOTS * BP; i += nthr) {
+    s_red[i] = red_init;
+    s_live[i] = 0;
+  }
+  __syncthreads();
+  // the characters up to each length, narrowed to bytes, four per store, in
+  // one pass over (pair, row, word); a code outside [0, 255] makes the
+  // block compare its int32 rows instead
+  bool wide_here = false;
+  const int row_words = (max(p.Lp, p.Lt) + 3) / 4;
+#pragma unroll 1
+  for (int i = tid; i < 2 * BP * row_words; i += nthr) {
+    const int b = i / (2 * row_words), r = i / row_words - 2 * b;
+    const int w = i - (2 * b + r) * row_words;
+    const int len = r ? s_tlen[b] : s_plen[b];
+    if (4 * w >= len) continue;
+    const int* src = r ? p.text + (size_t)(pair0 + b) * p.Lt
+                       : p.pattern + (size_t)(pair0 + b) * p.Lp;
+    uint32_t v = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (4 * w + c < len) {
+        const int ch = __ldg(src + 4 * w + c);
+        wide_here |= (unsigned)ch > 255u;
+        v |= (uint32_t)(ch & 0xff) << (8 * c);
+      }
+    reinterpret_cast<uint32_t*>(sq + (size_t)b * rpt + (r ? rp : 0))[w] = v;
+  }
+  const bool wide = __syncthreads_or(wide_here);
+
+  // s = 0: M_0[k=0] = LCP(p, t) on lane kc; I/D invalid.  Its reach and
+  // live span feed the top of step 1.
+  for (int b = tid; b < BP; b += nthr) {
+    const int pl = s_plen[b], tl = s_tlen[b], at = b * KCP + kc_full - lo;
+    const uint8_t* prow = sq + (size_t)b * rpt;
+    const int M =
+        wide ? extend(0, 0, p.pattern + (size_t)(pair0 + b) * p.Lp,
+                      p.text + (size_t)(pair0 + b) * p.Lt, pl, tl)
+             : extend(0, 0, prow, prow + rp, pl, tl);
+    mr[at] = M;
+    if (AFFINE) ir[at] = dr[at] = NEG;
+    s_span[b] = make_int2(kc_full, kc_full);
+    if (pl == tl && M >= tl) atomicOr(&s_reach[b >> 5], 1u << (b & 31));
+  }
+  __syncthreads();
+
+  const int oe = AFFINE ? p.o + p.e : p.e;
+  // ring rows of steps s - x, s - oe and s (M), s - e and s (I, D)
+  const auto wrap = [](int r, int n) { return ((r % n) + n) % n; };
+  int m_rx = wrap(1 - p.x, Wm), m_rg = wrap(1 - oe, Wm), m_rw = 1 % Wm;
+  int g_re = AFFINE ? wrap(1 - p.e, Wg) : 0, g_rw = AFFINE ? 1 % Wg : 0;
+  int s;
+  for (s = 1;; ++s) {
+    // ---- settle step s-1's pairs (warp 0), the block's exit; reset the
+    //      slots step s+1 fills ------------------------------------------
+    const int pv = (s - 1) & (STEP_SLOTS - 1);
+    const int nx = (s + 1) & (STEP_SLOTS - 1);
+    bool open = false;
+#pragma unroll 1
+    for (int w = 0; w < NRW; ++w) {
+      const unsigned was = s_open[((s - 1) & 1) * NRW + w];
+      const unsigned rc = s_reach[pv * NRW + w];
+      open |= (was & ~rc) != 0u;
+      if (tid < 32) {
+        if ((was & rc) >> lane & 1u) s_score[32 * w + lane] = s - 1;
+        if (lane == 0) {
+          s_open[(s & 1) * NRW + w] = was & ~rc;
+          s_reach[nx * NRW + w] = 0u;
+        }
+      }
+    }
+    if (tid < 32) {
+#pragma unroll 1
+      for (int i = lane; i < BP; i += 32) {
+        s_span[((s + 1) & (D - 1)) * BP + i] = empty;
+        s_red[nx * BP + i] = red_init;
+        s_live[nx * BP + i] = 0;
+      }
+    }
+    const bool done = !open || s > p.s_max;
+    if (done) break;
+
+    const int sh = 2 * (s % CELLS_PER_WORD);
+    const size_t word0 = (size_t)(s / CELLS_PER_WORD) * p.B;
+    const int sl = s & (STEP_SLOTS - 1), cur = s & (D - 1);
+    const int2* spx = s_span + ((s - p.x) & (D - 1)) * BP;
+    const int2* spg = s_span + ((s - oe) & (D - 1)) * BP;
+    const int2* spe = s_span + ((s - p.e) & (D - 1)) * BP;
+    // Pair b's spans of the rows step s reads and its chunks they reach,
+    // [c0, c1]; false when the pair has nothing to do this step (none, or,
+    // without TRACE, the pair is settled).  Warp-uniform.
+    const auto reach = [&](int b, int2& sx, int2& sg, int2& se, int& c0,
+                           int& c1) {
+      if (!TRACE) {
+        const int w = b >> 5;
+        const unsigned opn = s_open[((s - 1) & 1) * NRW + w] &
+                             ~s_reach[pv * NRW + w];
+        if (!(opn >> (b & 31) & 1u)) return false;
+      }
+      sx = spx[b];
+      sg = spg[b];
+      se = AFFINE ? spe[b] : sg;
+      const int clo = max(min(sx.x, min(sg.x, se.x) - 1), lo);
+      const int chi = min(max(sx.y, max(sg.y, se.y) + 1), lo + KC - 1);
+      c0 = (clo - lo) >> 5;
+      c1 = (chi - lo) >> 5;
+      c0 += ((sub - c0) % wpp + wpp) % wpp;   // this warp's first chunk
+      return clo <= chi;
+    };
+    // ---- phase A: candidates, extension, codes, unpruned store ----------
+#pragma unroll 1
+    for (int b = b_first; b < BP; b += b_step) {
+      int2 sx, sg, se;
+      int c0, c1;
+      if (!reach(b, sx, sg, se, c0, c1)) continue;
+      const int pl = s_plen[b], tl = s_tlen[b];
+      const uint8_t* prow = sq + (size_t)b * rpt;
+      const int* ipat = p.pattern + (size_t)(pair0 + b) * p.Lp;
+      const int* itxt = p.text + (size_t)(pair0 + b) * p.Lt;
+      const int bo = b * KCP;
+      bool hit = false;
+      int acc = HEUR == HEUR_ZDROP ? -BIG : BIG, n_live = 0;
+      int a_lo = EMPTY_LO, a_hi = -EMPTY_LO;
+#pragma unroll 1
+      for (int ch = c0; ch <= c1; ch += wpp) {
+        const int j = 32 * ch + lane, a = lo + j, k = a - kc_full;
+        Cell st{NEG, NEG, NEG, 0u, 0u, 0u};
+        if (j < KC) {
+          // the five reads unconditional, each index clamped into the
+          // pair's row, the spans selecting NEG after
+          const auto rd = [&](const int* rg, int r, int i) {
+            return rg[r * row_ints + bo + min(max(i, 0), KCP - 1)];
+          };
+          const int r_x = rd(mr, m_rx, j), r_io = rd(mr, m_rg, j - 1);
+          const int r_do = rd(mr, m_rg, j + 1);
+          const int r_ie = AFFINE ? rd(ir, g_re, j - 1) : NEG;
+          const int r_de = AFFINE ? rd(dr, g_re, j + 1) : NEG;
+          const int m_x = in_span(a, sx) ? r_x : NEG;
+          const int i_open = in_span(a - 1, sg) ? r_io : NEG;
+          const int d_open = in_span(a + 1, sg) ? r_do : NEG;
+          const int i_ext = AFFINE && in_span(a - 1, se) ? r_ie : NEG;
+          const int d_ext = AFFINE && in_span(a + 1, se) ? r_de : NEG;
+          st = wide ? step_cell<AFFINE>(m_x, i_open, i_ext, d_open, d_ext, k,
+                                        pl, tl, ipat, itxt)
+                    : step_cell<AFFINE>(m_x, i_open, i_ext, d_open, d_ext, k,
+                                        pl, tl, prow, prow + rp);
+          if (TRACE) {
+            // ci and cd are 0 for linear models
+            const uint32_t code[3] = {st.cm, st.ci, st.cd};
+#pragma unroll
+            for (int q = 0; q < n_planes; ++q) {
+              if (!code[q]) continue;
+              atomicOr(&p.bt[q][(word0 + pair0 + b) * KP + a],
+                       code[q] << sh);
+            }
+          }
+        }
+        mr[m_rw * row_ints + bo + j] = st.M;
+        if (AFFINE) {
+          ir[g_rw * row_ints + bo + j] = st.I;
+          dr[g_rw * row_ints + bo + j] = st.D;
+        }
+        const bool live = st.M > THRESH;
+        hit |= live && k == tl - pl && st.M >= tl;
+        if (live) {
+          if (HEUR == HEUR_ADAPTIVE) {
+            acc = min(acc, max(tl - st.M, pl - (st.M - k)));
+            ++n_live;
+          } else if (HEUR == HEUR_ZDROP) {
+            acc = max(acc, 2 * st.M - k);
+          } else {
+            a_lo = min(a_lo, a);
+            a_hi = max(a_hi, a);
+          }
+        }
+      }
+      // the warp's share of its pair's sums: one shared atomic a value
+      if (__any_sync(FULL, hit) && lane == 0)
+        atomicOr(&s_reach[sl * NRW + (b >> 5)], 1u << (b & 31));
+      if (HEUR == HEUR_ADAPTIVE) {
+        const int red = __reduce_min_sync(FULL, acc);
+        const int n = __reduce_add_sync(FULL, n_live);
+        if (lane == 0 && n) {
+          atomicMin(&s_red[sl * BP + b], red);
+          atomicAdd(&s_live[sl * BP + b], n);
+        }
+      } else if (HEUR == HEUR_ZDROP) {
+        const int red = __reduce_max_sync(FULL, acc);
+        if (lane == 0 && red != -BIG) atomicMax(&s_red[sl * BP + b], red);
+      } else {
+        const int span_lo = __reduce_min_sync(FULL, a_lo);
+        const int span_hi = __reduce_max_sync(FULL, a_hi);
+        if (lane == 0 && span_hi >= span_lo) {
+          atomicMin(&s_span[cur * BP + b].x, span_lo);
+          atomicMax(&s_span[cur * BP + b].y, span_hi);
+        }
+      }
+    }
+    __syncthreads();                      // the pairs' sums are complete
+    if constexpr (HEUR != HEUR_NONE) {
+      // ---- phase B: prune on the pair's totals; the row's live span -----
+#pragma unroll 1
+      for (int b = b_first; b < BP; b += b_step) {
+        int2 sx, sg, se;
+        int c0, c1;
+        if (!reach(b, sx, sg, se, c0, c1)) continue;
+        const int pl = s_plen[b], tl = s_tlen[b];
+        const int red = s_red[sl * BP + b], n_live = s_live[sl * BP + b];
+        const int bo = b * KCP;
+        int a_lo = EMPTY_LO, a_hi = -EMPTY_LO;
+#pragma unroll 1
+        for (int ch = c0; ch <= c1; ch += wpp) {
+          const int j = 32 * ch + lane, a = lo + j;
+          const int at = m_rw * row_ints + bo + j;
+          const int M = mr[at];
+          // M's mask prunes I and D too: a kept lane has a live M
+          const bool keep = j < KC && heur_keep<HEUR>(M, a - kc_full, pl, tl,
+                                                      red, n_live, p.hp1,
+                                                      p.hp2);
+          if (!keep && M > THRESH) {
+            mr[at] = NEG;
+            if (AFFINE)
+              ir[g_rw * row_ints + bo + j] = dr[g_rw * row_ints + bo + j] =
+                  NEG;
+          }
+          if (keep) {
+            a_lo = min(a_lo, a);
+            a_hi = max(a_hi, a);
+          }
+        }
+        const int span_lo = __reduce_min_sync(FULL, a_lo);
+        const int span_hi = __reduce_max_sync(FULL, a_hi);
+        if (lane == 0 && span_hi >= span_lo) {
+          atomicMin(&s_span[cur * BP + b].x, span_lo);
+          atomicMax(&s_span[cur * BP + b].y, span_hi);
+        }
+      }
+      __syncthreads();
+    }
+    m_rx = m_rx + 1 == Wm ? 0 : m_rx + 1;
+    m_rg = m_rg + 1 == Wm ? 0 : m_rg + 1;
+    m_rw = m_rw + 1 == Wm ? 0 : m_rw + 1;
+    if (AFFINE) {
+      g_re = g_re + 1 == Wg ? 0 : g_re + 1;
+      g_rw = g_rw + 1 == Wg ? 0 : g_rw + 1;
     }
   }
-}
-
-template <bool A, bool T>
-cudaError_t by_heur(const Params& p, int heur, int cpt, int threads,
-                    size_t smem, cudaStream_t stream) {
-  switch (heur) {
-    case HEUR_NONE: return by_cpt<A, T, HEUR_NONE>(p, cpt, threads, smem, stream);
-    case HEUR_ADAPTIVE:
-      return by_cpt<A, T, HEUR_ADAPTIVE>(p, cpt, threads, smem, stream);
-    case HEUR_ZDROP: return by_cpt<A, T, HEUR_ZDROP>(p, cpt, threads, smem, stream);
-    default: return cudaErrorInvalidValue;
+  // warp 0 settled the scores at the top of step s
+  __syncthreads();
+  for (int b = tid; b < BP; b += nthr) {
+    p.steps[pair0 + b] = s;
+    p.score[pair0 + b] = s_score[b];
   }
 }
 
@@ -877,54 +1037,128 @@ cudaError_t band_by_heur(const BandParams& p, int heur, int threads,
   }
 }
 
+template <bool A, bool T, int H>
+cudaError_t launch_full(const FullParams& p, int threads, size_t smem,
+                        cudaStream_t stream) {
+  auto kern = wfa_full_kernel<A, T, H>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<p.B / p.BP, threads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <bool A, bool T>
+cudaError_t full_by_heur(const FullParams& p, int heur, int threads,
+                         size_t smem, cudaStream_t stream) {
+  switch (heur) {
+    case HEUR_NONE: return launch_full<A, T, HEUR_NONE>(p, threads, smem, stream);
+    case HEUR_ADAPTIVE:
+      return launch_full<A, T, HEUR_ADAPTIVE>(p, threads, smem, stream);
+    case HEUR_ZDROP: return launch_full<A, T, HEUR_ZDROP>(p, threads, smem, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The full-width kernel's blocks resident on one SM at this shape.
+template <bool A, bool T>
+int full_occupancy(int heur, int threads, size_t smem) {
+  int n = 0;
+  const void* kern =
+      heur == HEUR_ADAPTIVE ? (const void*)wfa_full_kernel<A, T, HEUR_ADAPTIVE>
+      : heur == HEUR_ZDROP  ? (const void*)wfa_full_kernel<A, T, HEUR_ZDROP>
+                            : (const void*)wfa_full_kernel<A, T, HEUR_NONE>;
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, threads, smem) !=
+          cudaSuccess)
+    return -1;
+  return n;
+}
+
+bool full_args_ok(int B, int BP, int k_pad, int lane_lo, int lane_hi,
+                  int W, int e) {
+  return BP >= 1 && B % BP == 0 && k_pad >= 2 && W >= 2 && e >= 1 &&
+         lane_lo >= 0 && lane_lo <= k_pad / 2 && k_pad / 2 <= lane_hi &&
+         lane_hi < k_pad;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Largest trace cells-per-thread instantiated (BP * k_pad <= 16 * 1024).
-int wfa_max_trace_cells() { return 16 * MAX_THREADS; }
-
-// Ints of global scratch wfa_launch needs for the rings of B pairs: 0 when
-// they fit in shared memory.
-long long wfa_scratch_ints(int B, int BP, int k_pad, int W, int affine) {
-  if (BP < 1 || rings_in_smem(BP, k_pad, W, affine)) return 0;
-  return (long long)(B / BP) * (long long)(ring_bytes(BP, k_pad, W, affine) /
-                                           sizeof(int));
+// Ints of global scratch wfa_launch needs for B pairs in rows of Lp / Lt
+// characters on lanes [lane_lo, lane_hi] (kernel.full_lanes): the rings and
+// the byte characters of each block that shared memory does not hold
+// (full_layout).
+long long wfa_scratch_ints(int B, int BP, int k_pad, int lane_lo, int lane_hi,
+                           int W, int e, int affine, int Lp, int Lt) {
+  if (!full_args_ok(B, BP, k_pad, lane_lo, lane_hi, W, e)) return 0;
+  return full_layout(B, BP, lane_hi - lane_lo + 1, W, e + 1, affine, Lp, Lt)
+      .scratch_ints;
 }
 
-// Launch one batched WFA on `stream`; `scratch` holds wfa_scratch_ints(...)
-// ints (null when that is 0).  Returns cudaGetLastError() after the launch
-// (0 = launched); faults during the run surface at the next sync.
+// The launch wfa_launch makes at this shape: out[0] threads a block, out[1]
+// dynamic shared bytes, out[2] blocks resident on one SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[3] rings in shared
+// memory, out[4] characters in shared memory.  Returns 0, or
+// cudaErrorInvalidValue.
+int wfa_full_shape(int B, int BP, int k_pad, int lane_lo, int lane_hi, int W,
+                   int e, int affine, int trace, int heur, int Lp, int Lt,
+                   int* out) {
+  if (!full_args_ok(B, BP, k_pad, lane_lo, lane_hi, W, e))
+    return cudaErrorInvalidValue;
+  const FullLayout l =
+      full_layout(B, BP, lane_hi - lane_lo + 1, W, e + 1, affine, Lp, Lt);
+  out[0] = l.threads;
+  out[1] = (int)l.smem;
+  out[2] = affine ? (trace ? full_occupancy<true, true>(heur, l.threads, l.smem)
+                           : full_occupancy<true, false>(heur, l.threads, l.smem))
+                  : (trace ? full_occupancy<false, true>(heur, l.threads, l.smem)
+                           : full_occupancy<false, false>(heur, l.threads, l.smem));
+  out[3] = l.rings_smem;
+  out[4] = l.seq_smem;
+  return 0;
+}
+
+// Launch one batched WFA at full width on `stream`: k_pad lanes centred at
+// k_pad/2, of which no front can leave [lane_lo, lane_hi] up to s_max
+// (kernel.full_lanes); `scratch` holds wfa_scratch_ints(...) ints (null
+// when that is 0); with `trace`, the planes are zeroed.  Any character code
+// compares exactly.  Returns cudaGetLastError() after the launch (0 =
+// launched); faults during the run surface at the next sync.
 int wfa_launch(const int* pattern, const int* text, const int* plen,
                const int* tlen, int* score, int* steps, int* m_bt, int* i_bt,
                int* d_bt, int* scratch, int B, int Lp, int Lt, int BP,
-               int k_pad, int s_max, int x, int o, int e, int W, int affine,
-               int trace, int heur, int hp1, int hp2, void* stream) {
-  if (BP < 1 || B % BP != 0 || k_pad < 1 || W < 2) return cudaErrorInvalidValue;
-  if (B == 0) return cudaSuccess;
-  const int cells = BP * k_pad;
-  int cpt = 1;
-  if (trace) {
-    while (cpt * MAX_THREADS < cells) cpt *= 2;
-    if (cpt > 16) return cudaErrorInvalidValue;
-  }
-  int threads = trace ? (cells + cpt - 1) / cpt
-                      : (cells < MAX_THREADS ? cells : MAX_THREADS);
-  threads = ((threads + 31) / 32) * 32;
-  const int ring_in_smem = rings_in_smem(BP, k_pad, W, affine);
-  size_t smem = head_bytes(BP);
-  if (ring_in_smem)
-    smem += ring_bytes(BP, k_pad, W, affine);
-  else if (scratch == nullptr)
+               int k_pad, int lane_lo, int lane_hi, int s_max, int x, int o,
+               int e, int W, int affine, int trace, int heur, int hp1,
+               int hp2, void* stream) {
+  if (!full_args_ok(B, BP, k_pad, lane_lo, lane_hi, W, e))
     return cudaErrorInvalidValue;
-  Params p{pattern, text, plen, tlen, score, steps, m_bt, i_bt, d_bt, scratch,
-           B, Lp, Lt, BP, k_pad, s_max, x, o, e, W, hp1, hp2, ring_in_smem};
+  if (B == 0) return cudaSuccess;
+  const int KC = lane_hi - lane_lo + 1;
+  const FullLayout l = full_layout(B, BP, KC, W, e + 1, affine, Lp, Lt);
+  if (l.scratch_ints > 0 && scratch == nullptr) return cudaErrorInvalidValue;
+  const long long nblk = B / BP;
+  const int ring_n = full_ring_ints(BP, band_lanes(KC), W, e + 1, affine);
+  uint8_t* gseq =
+      l.seq_smem || scratch == nullptr
+          ? nullptr
+          : reinterpret_cast<uint8_t*>(
+                scratch + (l.rings_smem ? 0 : nblk * ring_n));
+  FullParams p{pattern, text, plen, tlen, score, steps,
+               {reinterpret_cast<uint32_t*>(m_bt),
+                reinterpret_cast<uint32_t*>(i_bt),
+                reinterpret_cast<uint32_t*>(d_bt)},
+               l.rings_smem ? nullptr : scratch, gseq, B, Lp, Lt, BP, k_pad,
+               lane_lo, KC, s_max, x, o, e, W, e + 1, hp1, hp2, l.wpp,
+               l.rings_smem, l.seq_smem};
   cudaStream_t st = (cudaStream_t)stream;
   if (affine)
-    return trace ? by_heur<true, true>(p, heur, cpt, threads, smem, st)
-                 : by_heur<true, false>(p, heur, cpt, threads, smem, st);
-  return trace ? by_heur<false, true>(p, heur, cpt, threads, smem, st)
-               : by_heur<false, false>(p, heur, cpt, threads, smem, st);
+    return trace ? full_by_heur<true, true>(p, heur, l.threads, l.smem, st)
+                 : full_by_heur<true, false>(p, heur, l.threads, l.smem, st);
+  return trace ? full_by_heur<false, true>(p, heur, l.threads, l.smem, st)
+               : full_by_heur<false, false>(p, heur, l.threads, l.smem, st);
 }
 
 // Ints of global scratch wfa_band_launch needs for B pairs in rows of Lp /

@@ -216,7 +216,8 @@ def wfa_cuda(pattern, text, plen, tlen, *, pen, s_max: int, k_pad: int,
     band kernel, which compares characters as bytes: every code must lie in
     [0, 255], and checking that costs one reduction and one synchronisation
     (span ``band.check_codes``); anything else raises.  The full-width
-    kernel does not synchronise."""
+    kernel takes any codes and any ``block_pairs * k_pad``, runs on the
+    lanes of :func:`full_lanes` and does not synchronise."""
     from repro_torch.kernels.wfa import build
 
     model = scoring.as_model(pen)
@@ -236,11 +237,6 @@ def wfa_cuda(pattern, text, plen, tlen, *, pen, s_max: int, k_pad: int,
     band = band_cap is not None and band_cap < k_pad
     if band:
         _check_bytes("band.check_codes", "band", (pattern, text))
-    if not band and trace and BP * k_pad > lib.wfa_max_trace_cells():
-        raise ValueError(
-            f"trace kernel takes block_pairs * k_pad <= "
-            f"{lib.wfa_max_trace_cells()}, got {BP} * {k_pad}; lower "
-            f"block_pairs")
     i32 = dict(dtype=torch.int32, device=dev)
     score = torch.empty((B, 1), **i32)
     steps = torch.empty((B, 1), **i32)
@@ -249,10 +245,9 @@ def wfa_cuda(pattern, text, plen, tlen, *, pen, s_max: int, k_pad: int,
         NW = wf.n_trace_words(s_max)
         bts = tuple(torch.zeros((NW, B, k_pad), **i32)
                     for _ in range(3 if affine else 1))
-    # rings (and the band kernel's byte characters) that do not fit shared
-    # memory go here (the size is the CUDA source's to decide); freed on
-    # return: the caching allocator orders any reuse after the kernel on
-    # this stream
+    # rings and byte characters that do not fit shared memory go here (the
+    # size is the CUDA source's to decide); freed on return: the caching
+    # allocator orders any reuse after the kernel on this stream
     kind, hp1, hp2 = _heur_args(heur)
     ptr = lambda t: None if t is None else t.data_ptr()
     m_bt, i_bt, d_bt = (bts + (None, None, None))[:3]
@@ -271,9 +266,12 @@ def wfa_cuda(pattern, text, plen, tlen, *, pen, s_max: int, k_pad: int,
             rc = lib.wfa_band_launch(*ptrs, ptr(scratch), *dims, Kc, *rest,
                                      stream)
         else:
-            n_scratch = lib.wfa_scratch_ints(B, BP, k_pad, W, int(affine))
+            lanes = full_lanes(model, s_max, k_pad)
+            n_scratch = lib.wfa_scratch_ints(B, BP, k_pad, *lanes, W,
+                                             model.e, int(affine), *dims[1:3])
             scratch = torch.empty(n_scratch, **i32) if n_scratch else None
-            rc = lib.wfa_launch(*ptrs, ptr(scratch), *dims, *rest, stream)
+            rc = lib.wfa_launch(*ptrs, ptr(scratch), *dims, *lanes, *rest,
+                                stream)
     if rc != 0:
         raise RuntimeError(f"WFA kernel launch failed: "
                            f"{lib.wfa_error_string(rc).decode()} ({rc})")
@@ -362,6 +360,25 @@ def meet_band(pen, s_max: int, k_pad: int, begin_state: str = "M",
     model = scoring.as_model(pen)
     return _meet_band(model.x, model.o, model.e, model.kind == "affine",
                       int(s_max), int(k_pad), (begin_state, end_state))
+
+
+def full_lanes(pen, s_max: int, k_pad: int):
+    """The lanes the full-width kernel runs on -> ``(lo, hi)``, inclusive:
+    the hull over steps 0 to ``s_max`` of :func:`meet_band`'s forward M
+    range, in closed form.  A front moves one lane off its diagonal per gap
+    step: a gap opened at ``o + e`` and extended every ``e`` after reaches
+    ``d = 1 + (s_max - o - e) // e`` lanes either side of ``kc = k_pad //
+    2`` (affine; ``s_max // e`` for linear models), clipped to ``[0,
+    k_pad)``.  No lane outside it is ever live, whatever the data or the
+    heuristic."""
+    model = scoring.as_model(pen)
+    s_max, kc = max(int(s_max), 0), int(k_pad) // 2
+    if model.kind == "affine":
+        oe = model.o + model.e
+        d = 0 if s_max < oe else 1 + (s_max - oe) // model.e
+    else:
+        d = s_max // model.e
+    return max(kc - d, 0), min(kc + d, int(k_pad) - 1)
 
 
 @functools.lru_cache(maxsize=64)

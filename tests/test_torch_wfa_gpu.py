@@ -5,16 +5,22 @@ It imports no JAX, so it also runs on a machine with a card and no JAX:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_wfa_gpu.py
 
 Without a card it skips.  Three kernels of ``csrc/wfa.cu`` and
-``csrc/wfa_meet.cu``: the full-width score and trace kernel, the meet search
-and the compacting band (with its edge cases: windows narrower than the live
-span and not a multiple of 32 lanes, windows that move inside a trace word,
-pairs settled at s = 0 and padded rows, a block of 10 kb pairs, characters
-too wide for shared memory, codes past a byte).  Inputs come from the port's seeded read generator;
+``csrc/wfa_meet.cu``: the full-width score and trace kernel (with its edge
+cases: a pair settled at s = 0 in a block that runs long, padded rows and a
+block of padding, the recovery shape, a block of 10 kb pairs, traces of more
+than 16,384 cells a block, codes outside [0, 255], heuristics that prune
+holes inside a live span, characters too wide for shared memory), the meet
+search and the compacting band (with its edge cases: windows narrower than
+the live span and not a multiple of 32 lanes, windows that move inside a
+trace word, pairs settled at s = 0 and padded rows, a block of 10 kb pairs,
+characters too wide for shared memory, codes past a byte).  Inputs come from the port's seeded read generator;
 every output is an integer, so each is held exactly equal to the plain
 version's (the plain versions are held against the JAX package on the CPU in
 ``test_torch_kernel_wfa.py``, ``test_torch_kernel_meet.py`` and
 ``test_torch_band.py``).
 """
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -67,6 +73,190 @@ def test_cuda_kernel_matches_plain(cuda_device):
                     assert t_kernel.LAUNCHES[key] == before[key] + 1
 
 
+def _kernel_check(args, **kw):
+    """CUDA kernel (full width, or the band with ``band_cap``) vs plain on
+    the same inputs, one counted launch -> the kernel's outputs."""
+    key = (("trace" if kw.get("trace") else "score")
+           + ("_band" if kw.get("band_cap") else ""))
+    before = t_kernel.LAUNCHES[key]
+    got = t_kernel.wfa_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    want = t_kernel.wfa_plain(*args, **kw)
+    _assert_same(want, got)
+    assert t_kernel.LAUNCHES[key] == before + 1
+    return got
+
+
+def _settled_rows(device):
+    """13 pairs of 200 bp, pairs 0 and 9 identical (cost 0) and pair 5
+    empty, padded to 16 rows, then a block of 8 rows of padding only."""
+    P, plen, T, tlen = generate_pairs(ReadPairSpec(
+        n_pairs=13, read_len=200, edit_frac=0.05, seed=5))
+    w = max(P.shape[1], T.shape[1])
+    P = np.pad(P, ((0, 0), (0, w - P.shape[1])))
+    T = np.pad(T, ((0, 0), (0, w - T.shape[1])))
+    for i in (0, 9):                                       # cost 0
+        T[i], tlen[i] = P[i], plen[i]
+    plen[5] = tlen[5] = 0                                  # empty pair
+    pp, tt, pl, tl, B = t_ops._prep(P, T, plen, tlen, 8, device=device)
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 8))
+    return (pad(pp), pad(tt), pad(pl), pad(tl)), B
+
+
+@pytest.mark.gpu
+def test_cuda_full_settled_pair_in_a_long_block(cuda_device):
+    """Pairs settled at s = 0 (identical, and empty) in blocks whose other
+    pairs run long: their score is 0 and the block's steps its last pair's
+    exit.  Under trace a pair settled early keeps getting codes until its
+    block exits, while the score variant stops its warps.  Padded rows
+    settle at s = 0 too, and the block of padding only exits at s = 1."""
+    args, B = _settled_rows(cuda_device)
+    for pen in (t_scoring.GapAffine(), t_scoring.Edit()):
+        for heur in (None, t_scoring.ZDrop(8), t_scoring.AdaptiveBand(10, 4)):
+            for trace in (False, True):
+                got = _kernel_check(args, pen=pen, s_max=80, k_pad=256,
+                                  block_pairs=8, trace=trace, heur=heur)
+                score, steps = got[0][:, 0].cpu(), got[1][:, 0].cpu()
+                assert score[[0, 5, 9]].tolist() == [0, 0, 0]
+                assert bool((score[B:] == 0).all())
+                assert steps[16:].tolist() == [1] * 8
+                assert int(steps[0]) > 1
+                if trace and heur is None and pen.kind == "affine":
+                    # a pair of block 0 settled at least a word before the
+                    # block exits has codes in the block's last word
+                    last = (int(steps[0]) - 1) // 16
+                    early = [b for b in range(8) if 0 < int(score[b]) and
+                             int(score[b]) // 16 < last]
+                    assert early
+                    assert any(bool(got[2][last, b].any()) for b in early)
+                    assert not bool(got[2][:, 16:].any())
+
+
+@pytest.mark.gpu
+def test_cuda_full_recovery_shape(cuda_device):
+    """The recovery pass's shape (s_max 416, k_pad 384: every lane of
+    k_pad live, rings in shared memory, codes ORed into the planes, 1,024
+    threads a block) on 100 bp pairs at E = 6%, every model and
+    heuristic."""
+    P, plen, T, tlen = generate_pairs(ReadPairSpec(
+        n_pairs=32, read_len=100, edit_frac=0.06, seed=11))
+    args = t_ops._prep(P, T, plen, tlen, 8, device=cuda_device)[:4]
+    assert t_kernel.full_lanes(t_scoring.GapAffine(), 416, 384) == (0, 383)
+    for pen in (t_scoring.GapAffine(), t_scoring.GapLinear(),
+                t_scoring.Edit()):
+        for heur in (None, t_scoring.AdaptiveBand(10, 4), t_scoring.ZDrop(8)):
+            for trace in (False, True):
+                _kernel_check(args, pen=pen, s_max=416, k_pad=384,
+                            block_pairs=8, trace=trace, heur=heur)
+
+
+@pytest.mark.gpu
+def test_cuda_full_block_of_10kb_pairs(cuda_device):
+    """One block of 8 pairs of 10 kb at E = 3%, exact, at the BiWFA path's
+    pass-1 bounds (s_max 4,928, k_pad 4,992: rings in global scratch, the
+    characters in shared memory), score and packed trace (8 x 4,992 =
+    39,936 cells a block, codes ORed into the planes)."""
+    from repro_torch.core.engine import AlignmentEngine, _fit_width
+    P, plen, T, tlen = generate_pairs(ReadPairSpec(
+        n_pairs=8, read_len=10000, edit_frac=0.03, seed=0))
+    pen = t_scoring.GapAffine(4, 6, 2)
+    eng = AlignmentEngine(pen, backend="kernel", edit_frac=0.03,
+                          device=cuda_device)
+    s_max, k_max = eng._bounds_for_bucket(16384, plen, tlen, False)
+    k_pad = t_ops._round_up(2 * k_max + 1, t_ops.LANE)
+    assert (s_max, k_pad) == (4928, 4992)
+    w = max(P.shape[1], T.shape[1])
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+    args = (to(_fit_width(P, w)), to(_fit_width(T, w)), to(plen[:, None]),
+            to(tlen[:, None]))
+    for trace in (False, True):
+        got = _kernel_check(args, pen=pen, s_max=s_max, k_pad=k_pad,
+                          block_pairs=8, trace=trace)
+        assert bool((got[0] > 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_pairs", [8, 40])
+def test_cuda_full_trace_past_16384_cells(cuda_device, block_pairs):
+    """Packed traces of block_pairs * k_pad well past 16,384 cells, which a
+    body keeping 16 trace words a thread in registers cannot hold: short
+    pairs at k_pad 4,096, every model; 40 pairs a block, more than the 32
+    warps of a CTA."""
+    P, plen, T, tlen = generate_pairs(ReadPairSpec(
+        n_pairs=80, read_len=150, edit_frac=0.06, seed=3))
+    args = t_ops._prep(P, T, plen, tlen, block_pairs,
+                       device=cuda_device)[:4]
+    assert block_pairs * 4096 > 16384
+    for pen in (t_scoring.GapAffine(), t_scoring.GapLinear(),
+                t_scoring.Edit()):
+        for heur in (None, t_scoring.AdaptiveBand(10, 4)):
+            _kernel_check(args, pen=pen, s_max=3000, k_pad=4096,
+                        block_pairs=block_pairs, trace=True, heur=heur)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", [-1, 300, 70000])
+def test_cuda_full_codes_outside_a_byte(cuda_device, bad):
+    """A code outside [0, 255] gives exact results: the block that holds it
+    compares int32 characters (one pair gets the code in both sequences,
+    another a code 256 apart from its partner's, which bytes would call
+    equal); no launch is refused."""
+    P, plen, T, tlen = generate_pairs(ReadPairSpec(
+        n_pairs=16, read_len=80, edit_frac=0.05, seed=2))
+    pp, tt, pl, tl, _ = t_ops._prep(P, T, plen, tlen, 8, device=cuda_device)
+    pp, tt = pp.clone(), tt.clone()
+    pp[3, 1] = tt[3, 1] = bad
+    pp[10, 5], tt[10, 5] = bad + 256, bad
+    for pen in (t_scoring.GapAffine(), t_scoring.Edit()):
+        for trace in (False, True):
+            _kernel_check((pp, tt, pl, tl), pen=pen, s_max=60, k_pad=128,
+                        block_pairs=8, trace=trace)
+
+
+@pytest.mark.gpu
+def test_cuda_full_pruning_holes(cuda_device):
+    """ZDrop(8) and AdaptiveBand(10, 4) prune lanes inside a row's live
+    span (tests/test_torch_full_lanes.py shows such holes on these pairs in
+    the JAX package's histories): the next steps read those lanes as NEG."""
+    P, plen, T, tlen = generate_pairs(ReadPairSpec(
+        n_pairs=16, read_len=120, edit_frac=0.1, seed=27))
+    args = t_ops._prep(P, T, plen, tlen, 8, device=cuda_device)[:4]
+    s_max, k_max = problem_bounds(t_scoring.GapAffine(), plen, tlen, None)
+    k_pad = t_ops._round_up(2 * k_max + 1, t_ops.LANE)
+    for pen in (t_scoring.GapAffine(), t_scoring.GapLinear(),
+                t_scoring.Edit()):
+        for heur in (t_scoring.ZDrop(8), t_scoring.AdaptiveBand(10, 4)):
+            for trace in (False, True):
+                _kernel_check(args, pen=pen, s_max=s_max, k_pad=k_pad,
+                            block_pairs=8, trace=trace, heur=heur)
+
+
+@pytest.mark.gpu
+def test_cuda_full_wide_rows(cuda_device):
+    """Short pairs in rows of 30,000 columns: the byte characters of a
+    block pass the shared memory a CTA may hold and go to global scratch
+    (the rings stay in shared memory); wfa_full_shape says where each
+    array lives."""
+    from repro_torch.kernels.wfa import build
+    P, plen, T, tlen = generate_pairs(ReadPairSpec(
+        n_pairs=16, read_len=100, edit_frac=0.05, seed=3))
+    pp, tt, pl, tl, B = t_ops._prep(P, T, plen, tlen, 8, device=cuda_device)
+    W = 30000
+    cols = lambda t: torch.nn.functional.pad(t, (0, W - t.shape[1]))
+    args = (cols(pp), cols(tt), pl, tl)
+    pen = t_scoring.GapAffine()
+    lanes = t_kernel.full_lanes(pen, 60, 256)
+    shape = (ctypes.c_int * 5)()
+    assert build.load().wfa_full_shape(16, 8, 256, *lanes, pen.window,
+                                       pen.e, 1, 1, 0, W, W, shape) == 0
+    threads, smem, per_sm, rings, seq = list(shape)
+    assert (threads, rings, seq) == (256, 1, 0) and per_sm >= 1
+    for heur in (t_scoring.AdaptiveBand(10, 4), None):
+        for trace in (False, True):
+            _kernel_check(args, pen=pen, s_max=60, k_pad=256, block_pairs=8,
+                        trace=trace, heur=heur)
+
+
 @pytest.mark.gpu
 def test_cuda_band_kernel_matches_plain(cuda_device):
     """Every model x heuristic x output on the band (128, 256 and 512
@@ -88,19 +278,6 @@ def test_cuda_band_kernel_matches_plain(cuda_device):
                 want = t_kernel.wfa_plain(*args, **kw)
                 _assert_same(want, got)
                 assert t_kernel.LAUNCHES[key] == before + 1
-
-
-def _band_check(args, **kw):
-    """Band kernel vs plain on the same inputs, one counted launch ->
-    the kernel's outputs."""
-    key = "trace_band" if kw.get("trace") else "score_band"
-    before = t_kernel.LAUNCHES[key]
-    got = t_kernel.wfa_cuda(*args, **kw)
-    torch.cuda.synchronize()
-    want = t_kernel.wfa_plain(*args, **kw)
-    _assert_same(want, got)
-    assert t_kernel.LAUNCHES[key] == before + 1
-    return got
 
 
 def _ragged(seed=9, n=10, drift=30):
@@ -133,7 +310,7 @@ def test_cuda_band_truncating_window(cuda_device, cap):
     for pen in (t_scoring.GapAffine(), t_scoring.Edit()):
         for heur in (t_scoring.AdaptiveBand(4, 10), t_scoring.ZDrop(12)):
             for trace in (False, True):
-                got = _band_check(args, pen=pen, s_max=s_max, k_pad=k_pad,
+                got = _kernel_check(args, pen=pen, s_max=s_max, k_pad=k_pad,
                                   block_pairs=4, trace=trace, heur=heur,
                                   band_cap=cap)
     if cap == 16:
@@ -178,10 +355,10 @@ def test_cuda_band_window_moves_inside_a_word(cuda_device, stage):
             kw = dict(pen=pen, s_max=s_max, k_pad=k_pad, block_pairs=4,
                       trace=True, heur=heur, band_cap=cap)
             if lib is None:
-                got = _band_check(args, **kw)
+                got = _kernel_check(args, **kw)
             else:
                 with variants.loaded_from(build, lib):
-                    got = _band_check(args, **kw)
+                    got = _kernel_check(args, **kw)
             assert int(_word_spans(got[2], 4).max()) > cap
 
 
@@ -205,7 +382,7 @@ def test_cuda_band_settled_and_padded_rows(cuda_device):
         for heur, cap in ((t_scoring.AdaptiveBand(), 128),
                           (t_scoring.ZDrop(8), 40), (None, 96)):
             for trace in (False, True):
-                got = _band_check(args, pen=pen, s_max=300, k_pad=256,
+                got = _kernel_check(args, pen=pen, s_max=300, k_pad=256,
                                   block_pairs=8, trace=trace, heur=heur,
                                   band_cap=cap)
                 score, steps = got[0][:, 0].cpu(), got[1][:, 0].cpu()
@@ -235,7 +412,7 @@ def test_cuda_band_block_of_10kb_pairs(cuda_device):
     args = (to(_fit_width(P, w)), to(_fit_width(T, w)), to(plen[:, None]),
             to(tlen[:, None]))
     for trace in (False, True):
-        got = _band_check(args, pen=pen, s_max=s_max, k_pad=k_pad,
+        got = _kernel_check(args, pen=pen, s_max=s_max, k_pad=k_pad,
                           block_pairs=8, trace=trace, heur=heur,
                           band_cap=cap)
         assert bool((got[0] > 0).all())
@@ -263,7 +440,7 @@ def test_cuda_band_wide_rows(cuda_device):
         assert n(W, trace) == rings + 2 * 8 * 2 * (W + 8) // 4
     for heur in (t_scoring.AdaptiveBand(), None):
         for trace in (False, True):
-            _band_check(args, pen=t_scoring.GapAffine(), s_max=200,
+            _kernel_check(args, pen=t_scoring.GapAffine(), s_max=200,
                         k_pad=256, block_pairs=8, trace=trace, heur=heur,
                         band_cap=128)
 
