@@ -47,7 +47,30 @@ Phases (each raises on failure, and the script then exits non-zero):
    plain version on the same rows; the port's tracer is on for this run
    and the blocking run's wall clock is printed split by span (meet and
    other kernels, host scatter, leaf traceback, split, stitch);
-7. band kernel vs plain — the CUDA band kernel (the compacting band,
+7. read mapping — a seeded synthetic genome of 4,641,652 bp (the length of
+   E. coli K-12 MG1655), ``MinimizerIndex.build`` at the mapper's
+   defaults, 32,768 reads of 100 bp at E = 2% on both strands
+   (``sample_from_reference``, seed 9), ``ReadMapper(top_n=2,
+   backend="kernel")`` on the card: the trace kernel must launch, recall
+   (strand right, POS within 6 bp) must reach 95%, every mapped record must
+   re-score to its cost against ``ref[pos : pos + ref_span]``, and the SAM
+   text must equal the same run on the ``ring`` backend; index build,
+   seed + chain and extension seconds, mappings/s and the raw pairwise
+   pairs/s of as many pairs with CIGARs are printed; then
+   ``repro_torch.launch.map_reads --backend kernel`` on FASTA files of
+   4,096 of the reads must give the library call's records, and
+   ``repro_torch.launch.align --output sam`` on 4,096 pairs must verify;
+8. alignment service — ``repro_torch.launch.serve_align --backend
+   kernel`` at its defaults (512 requests x 8 pairs, waves of 256, load
+   0.75 of the batch rate it measures on the card), at 4,096 requests x 16
+   pairs (waves of 8,192, two worker threads) and with ``--output cigar``:
+   the score kernel (the trace kernel for CIGARs) must launch, no request
+   may fail, the warm replay must create no new specialisation, every
+   delivered score must equal batch mode on the same engine and 512 the
+   Gotoh oracle, and every CIGAR must re-score to its cost; sustained
+   pairs/s, latency percentiles, shed requests, driver lag, flush reasons,
+   occupancy and padding waste are printed;
+9. band kernel vs plain — the CUDA band kernel (the compacting band,
    ``band_cap``) against its plain version over {GapAffine(4,6,2),
    GapLinear, Edit} x {AdaptiveBand(), ZDrop(), AdaptiveBand(10,4),
    ZDrop(8)} x {score, trace} on 256 pairs of 1 kb at exact-bucket bounds
@@ -59,7 +82,7 @@ Phases (each raises on failure, and the script then exits non-zero):
    (bytes; integer operations of the window cells the recurrence can reach
    up to each block's exit step), and the full-width kernel, heuristic and
    exact, timed on the same wave;
-8. banded path — ``AlignmentEngine(GapAffine(4,6,2), backend="kernel",
+10. banded path — ``AlignmentEngine(GapAffine(4,6,2), backend="kernel",
    heuristic=AdaptiveBand(), backend_opts={"band_cap": "auto"})`` on the
    1,024 pairs of 10 kb: ``output="score"`` blocking and streamed,
    ``output="cigar", trace_variant="bidir"``, and the packed CIGAR path on
@@ -70,7 +93,7 @@ Phases (each raises on failure, and the script then exits non-zero):
    equal to the full-width heuristic run are printed, with the seconds the
    band wrapper's byte check of the codes (``band.check_codes``) takes in
    a second, traced run of the blocking score and bidir runs;
-9. flash kernel vs plain — every CUDA flash-attention body that takes the
+11. flash kernel vs plain — every CUDA flash-attention body that takes the
    inputs against the plain version over {MHA 8/8, GQA 16/8, MQA 16/1,
    qwen3-32b's 64/8, granite-34b's 48/1} x {causal, non-causal} x {fp32,
    bf16} x dh {64, 128} x S {128, 250, 1,024, 2,048} (non-causal only at
@@ -84,7 +107,7 @@ Phases (each raises on failure, and the script then exits non-zero):
    128, bf16, causal) the wgmma, ``mma.sync`` and fp32-pipe bodies, the
    plain version and ``scaled_dot_product_attention`` (the yardstick, timed
    only) are timed in turns, twice;
-10. serve path — qwen3-0.6b at full width with random weights from a
+12. serve path — qwen3-0.6b at full width with random weights from a
    seeded generator on the card: ``repro_torch.launch.serve.main(["--arch",
    "qwen3-0.6b"])`` (8 requests of 4-16 tokens, 32 new each), then one
    ``BatchServer`` wave of 8 prompts of 2,048 tokens, 32 new, ``max_seq``
@@ -95,7 +118,7 @@ Phases (each raises on failure, and the script then exits non-zero):
    cache) must equal those of one ``forward`` (flash kernel) over the same
    tokens within the stated bf16 tolerance; prefill and decode tokens/s and
    peak memory are printed;
-11. report — a ``kernels`` JSON line, the card's name and power limit, and
+13. report — a ``kernels`` JSON line, the card's name and power limit, and
    the final ``{"ok": true, ...}`` line.
 
 It needs one card and exits non-zero without one.  It imports nothing of
@@ -129,6 +152,16 @@ BAND_GRID_PAIRS = 256   # the band grid: pairs of 1 kb
 BAND_GRID_LEN = 1000
 BAND_PACKED_PAIRS = 64  # packed CIGARs at 10 kb: 309 words x 64 x 4,992 x 3
                         # planes x 4 B = 1.18 GB of trace
+# read mapping: a synthetic genome (seeded, nothing downloaded) of the
+# length of E. coli K-12 MG1655 (NC_000913.3), reads of the main path's
+# length and divergence on both strands
+MAP_REF_LEN = 4_641_652
+MAP_READS = 32768
+MAP_LAUNCHER_READS = 4096
+# the alignment service at a size the card serves: 65,536 pairs of 100 bp
+SERVE_REQUESTS = 4096
+SERVE_PAIRS_PER_REQUEST = 16
+SERVE_WAVE = 8192
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 INT32_OPS_PER_S = 16.7e12      # 132 SMs x 64 INT32 lanes x 1.98 GHz
 BF16_FLOPS_PER_S = 989e12      # H100 SXM tensor cores, dense bf16
@@ -412,7 +445,7 @@ def phase_full_10kb(K, S, dev):
 
 
 def phase_main_path(K):
-    """Phase 4: the launcher on the kernel backend, then on ring."""
+    """Phase 5: the launcher on the kernel backend, then on ring."""
     import numpy as np
     from repro_torch.launch import align
 
@@ -801,8 +834,287 @@ def phase_bidir_path(K, root):
     return launches, bidir, packed, err, split
 
 
+def map_records(sam_text):
+    """SAM records (no @PG line) in read order: r0, r1, ... (the launcher
+    writes them in retirement order)."""
+    lines = [ln for ln in sam_text.splitlines() if not ln.startswith("@PG")]
+    head = [ln for ln in lines if ln.startswith("@")]
+    body = sorted((ln for ln in lines if not ln.startswith("@")),
+                  key=lambda ln: int(ln.split("\t")[0][1:]))
+    return head + body
+
+
+def phase_map(K, card):
+    """Phase 7: read mapping at the scale of a bacterial genome on the
+    kernel backend -> (launches, summary).  Every extension goes through
+    ``engine.stream()`` in CIGAR mode, so through the trace kernel."""
+    import io
+    import tempfile
+    from repro_torch.core.gotoh import score_cigar
+    from repro_torch.data.dna import random_reference, revcomp
+    from repro_torch.data.reads import (ReadPairSpec, generate_pairs,
+                                        sample_from_reference)
+    from repro_torch.launch import align, map_reads
+    from repro_torch.mapping import MinimizerIndex, ReadMapper, write_sam
+    from repro_torch.obs import trace
+
+    t_phase = time.perf_counter()
+    ref = random_reference(MAP_REF_LEN, seed=5)
+    t0 = time.perf_counter()
+    index = MinimizerIndex.build([ref], ["chr1"])
+    t_index = time.perf_counter() - t0
+    sampled = sample_from_reference(ref, MAP_READS, read_len=READ_LEN,
+                                    edit_frac=EDIT_FRAC, seed=9)
+    reads = [r.read for r in sampled]
+    names = [f"r{i}" for i in range(len(reads))]
+    log(f"[map] index of {MAP_REF_LEN:,} bp in {t_index:.2f}s: "
+        f"{index.n_occurrences:,} seed occurrences, "
+        f"{index.nbytes() / 1e6:.1f} MB; {len(reads):,} reads of "
+        f"{READ_LEN} bp at E = {EDIT_FRAC:.0%}, both strands")
+
+    def mapper(backend):
+        return ReadMapper(index, top_n=2, edit_frac=EDIT_FRAC,
+                          read_len=READ_LEN, backend=backend, device="cuda")
+
+    def sam(maps, n=None):
+        buf = io.StringIO()
+        write_sam(buf, maps[:n], reads[:n], names[:n], index.names,
+                  index.lengths)
+        return buf.getvalue()
+
+    kern = mapper("kernel")
+    K.reset_launches()
+    trace.reset()
+    trace.enable()
+    t0 = time.perf_counter()
+    try:
+        maps = kern.map(reads)
+    finally:
+        trace.disable()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    t_seed = sum(e["dur"] for e in trace.events()
+                 if e.get("ph") == "X" and e["name"] == "map.seed_chain") / 1e6
+    trace.reset()
+    st = kern.stats
+    log(f"[map] kernel backend: {wall:.2f}s for {len(reads):,} reads "
+        f"({st.n_extensions:,} extensions, {st.n_tickets} tickets, "
+        f"{st.engine.n_overflow} overflow, {st.engine.n_recovered} "
+        f"recovered, {st.n_unresolved} unresolved); launches {launches}")
+    if launches["trace"] == 0:
+        raise AssertionError(f"the mapping path missed the trace kernel: "
+                             f"{launches}")
+    hits = sum(m[0].mapped and m[0].strand == r.strand
+               and abs(m[0].pos - r.pos) <= 6
+               for r, m in zip(sampled, maps))
+    if hits < 0.95 * len(reads):
+        raise AssertionError(f"recall {hits}/{len(reads)} below 95%")
+    pen = kern.pen.as_penalties()
+    n_rec = 0
+    for r, ms in zip(sampled, maps):
+        for m in ms:
+            if not m.mapped:
+                continue
+            txt = r.read if m.strand == 0 else revcomp(r.read)
+            cost, ci, cj, ok = score_cigar(
+                m.ops, ref[m.pos: m.pos + m.ref_span()], txt, pen)
+            if not (ok and cost == m.score and ci == m.ref_span()
+                    and cj == len(txt)):
+                raise AssertionError(f"read {r} record {m}: re-scores to "
+                                     f"{cost} (ok={ok})")
+            n_rec += 1
+    sam_kernel = sam(maps)
+    ring = mapper("ring")
+    t0 = time.perf_counter()
+    sam_ring = sam(ring.map(reads))
+    t_ring = time.perf_counter() - t0
+    if sam_kernel != sam_ring:
+        a, b = sam_kernel.splitlines(), sam_ring.splitlines()
+        i = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        raise AssertionError(f"kernel and ring SAM differ at line {i}: "
+                             f"{a[i]!r} != {b[i]!r}")
+    log(f"[map] recall {hits / len(reads):.4f} (strand right, POS within "
+        f"6 bp); {n_rec:,} mapped records re-score to their cost; SAM "
+        f"identical to the ring backend's ({t_ring:.2f}s on the card)")
+
+    # the raw pairwise yardstick: as many pairs of the same length through
+    # the same engine with CIGARs, no mapping stages
+    P, plen, T, tlen = generate_pairs(ReadPairSpec(
+        n_pairs=st.n_extensions, read_len=READ_LEN, edit_frac=EDIT_FRAC,
+        seed=9))
+    kern.engine.align_packed(P, plen, T, tlen, output="cigar")
+    t0 = time.perf_counter()
+    kern.engine.align_packed(P, plen, T, tlen, output="cigar")
+    pairwise = st.n_extensions / (time.perf_counter() - t0)
+    out = {"index_s": t_index, "seed_chain_s": t_seed,
+           "extension_s": wall - t_seed, "wall_s": wall,
+           "mappings_per_s": len(reads) / wall,
+           "pairwise_pairs_per_s": pairwise, "recall": hits / len(reads),
+           "extensions": st.n_extensions}
+    log(f"[map] index build {t_index:.3f}s, seed+chain {t_seed:.3f}s, "
+        f"extension (the rest of the pass: submit, waves, traceback, trim) "
+        f"{wall - t_seed:.3f}s; {out['mappings_per_s']:,.0f} mappings/s "
+        f"against {pairwise:,.0f} raw pairwise pairs/s with CIGARs on "
+        f"{st.n_extensions:,} pairs of {READ_LEN} bp (ratio "
+        f"{pairwise / out['mappings_per_s']:.2f}) on {card}")
+
+    # the launchers: map_reads on FASTA files, align --output sam
+    n = MAP_LAUNCHER_READS
+    with tempfile.TemporaryDirectory() as tmp:
+        refs_p, reads_p = f"{tmp}/ref.fa", f"{tmp}/reads.fa"
+        sam_p, pairs_p = f"{tmp}/map.sam", f"{tmp}/pairs.sam"
+        with open(refs_p, "w") as f:
+            f.write(f">chr1\n{ref.tobytes().decode()}\n")
+        with open(reads_p, "w") as f:
+            for name, r in zip(names[:n], reads[:n]):
+                f.write(f">{name}\n{r.tobytes().decode()}\n")
+        t0 = time.perf_counter()
+        rc = map_reads.main(["--refs", refs_p, "--reads", reads_p,
+                             "--sam-out", sam_p, "--backend", "kernel",
+                             "--device", "cuda"])
+        if rc != 0:
+            raise AssertionError(f"map_reads exited {rc}")
+        with open(sam_p) as f:
+            launched = f.read()
+        if map_records(launched) != map_records(sam(maps, n)):
+            raise AssertionError("map_reads and the library call give "
+                                 "other records")
+        t_launch = time.perf_counter() - t0
+        summary = {}
+        rc = align.main(["--backend", "kernel", "--device", "cuda",
+                         "--output", "sam", "--sam-out", pairs_p,
+                         "--pairs", str(n), "--mode", "sync", "--verify",
+                         "512"], summary)
+        with open(pairs_p) as f:
+            n_sam = sum(not ln.startswith("@") for ln in f)
+        if rc != 0 or summary.get("verified") != min(512, n) or n_sam != n:
+            raise AssertionError(f"align --output sam: rc {rc}, "
+                                 f"{n_sam} records")
+    log(f"[map] map_reads on {n:,} reads ({t_launch:.2f}s with its index "
+        f"build) gives the library call's records; align --output sam "
+        f"wrote {n_sam:,} records, {summary['verified']} verified; phase in "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    return launches, out
+
+
+def phase_serve_align(K, card):
+    """Phase 8: the always-on alignment service on the kernel backend ->
+    (launches, summaries): ``launch/serve_align`` at its defaults, at a
+    size the card serves (65,536 pairs, waves of 8,192, two worker
+    threads), and with ``--output cigar``.  Each run's offered load is
+    0.75 of the batch-mode rate of its own trace in its own output, taken
+    by the launcher's calibration on an engine of its own before the counts
+    are set to 0 and passed as ``--rate``: the counts then hold the warm-up
+    and the replay alone, and each of the replay's waves must launch."""
+    import numpy as np
+    from repro_torch.core.engine import AlignmentEngine
+    from repro_torch.core.gotoh import gotoh_score_vec, score_cigar
+    from repro_torch.core.penalties import DEFAULT
+    from repro_torch.data.reads import ArrivalSpec, generate_trace
+    from repro_torch.launch import serve_align
+
+    # name -> (requests, pairs a request, output, other flags); the
+    # launcher's defaults are 512 x 8 pairs of 100 bp at E = 2%, seed 13
+    runs = {"defaults": (512, 8, "score", []),
+            "large": (SERVE_REQUESTS, SERVE_PAIRS_PER_REQUEST, "score",
+                      ["--wave-pairs", str(SERVE_WAVE), "--threads", "2"]),
+            "cigar": (512, 8, "cigar", [])}
+    launches, out = {}, {}
+    for name, (n_req, per, output, extra) in runs.items():
+        payloads = generate_trace(ArrivalSpec(
+            n_requests=n_req, pairs_per_request=per, read_len=100,
+            edit_frac=0.02, seed=13))[0]
+        batch_pps = serve_align.batch_pairs_per_s(
+            AlignmentEngine(backend="kernel", edit_frac=0.02,
+                            device="cuda"), payloads, output=output)
+        rate = 0.75 * batch_pps / per
+        summary = {}
+        K.reset_launches()
+        t0 = time.perf_counter()
+        rc = serve_align.main(["--backend", "kernel", "--device", "cuda",
+                               "--requests", str(n_req),
+                               "--pairs-per-request", str(per),
+                               "--output", output, "--rate", repr(rate),
+                               *extra], summary)
+        launches[name] = dict(K.LAUNCHES)
+        wall = time.perf_counter() - t0
+        rep = summary["report"]
+        st = rep.stats
+        variant = "trace" if output == "cigar" else "score"
+        # every device wave (recoveries too) is one launch or more
+        n = launches[name]
+        if (rc != 0 or rep.n_failed or n[variant] == 0
+                or n["score"] + n["trace"] < st.n_waves):
+            raise AssertionError(f"serve run {name}: rc {rc}, "
+                                 f"{rep.n_failed} failed, launches "
+                                 f"{launches[name]} for {st.n_waves} "
+                                 f"waves")
+        if summary["fresh_specialisations"]:
+            raise AssertionError(f"serve run {name}: "
+                                 f"{summary['fresh_specialisations']} new "
+                                 f"specialisations during the warm replay")
+        if not all(np.array_equal(x, y) for a, b in
+                   zip(payloads, summary["payloads"]) for x, y in zip(a, b)):
+            raise AssertionError(f"serve run {name}: the launcher's trace "
+                                 f"is not the one calibrated")
+        P, plen, T, tlen = (np.concatenate(a)
+                            for a in zip(*summary["payloads"]))
+        served = [(i, r) for i, r in enumerate(rep.results) if r is not None]
+        rows = np.concatenate([np.arange(i * per, (i + 1) * per)
+                               for i, _ in served])
+        got = np.concatenate([r.scores for _, r in served])
+        batch = summary["engine"].align_packed(P, plen, T, tlen).scores
+        if not np.array_equal(got, batch[rows]):
+            raise AssertionError(f"serve run {name}: "
+                                 f"{int((got != batch[rows]).sum())} scores "
+                                 f"differ from batch mode")
+        for j in range(0, len(rows), max(1, len(rows) // 512))[:512]:
+            i = rows[j]
+            g = gotoh_score_vec(P[i, :plen[i]], T[i, :tlen[i]], DEFAULT)
+            if got[j] != g:
+                raise AssertionError(f"serve run {name}: pair {i} "
+                                     f"{got[j]} != Gotoh {g}")
+        if name == "cigar":
+            cig = [c for _, r in served for c in r.cigars]
+            for j, (i, ops) in enumerate(zip(rows, cig)):
+                cost, ci, cj, ok = score_cigar(ops, P[i, :plen[i]],
+                                               T[i, :tlen[i]], DEFAULT)
+                if not (ok and cost == got[j] and ci == plen[i]
+                        and cj == tlen[i]):
+                    raise AssertionError(f"serve CIGAR of pair {i} "
+                                         f"re-scores to {cost} != {got[j]}")
+        out[name] = {
+            "pairs": int(P.shape[0]), "threads": 2 if name == "large" else 1,
+            "batch_output": output, "batch_pairs_per_s": batch_pps,
+            "offered_pairs_per_s": rate * per,
+            "waves_dispatched": st.n_waves,
+            "sustained_pairs_per_s": rep.sustained_pairs_per_s,
+            "p50_ms": rep.percentile_ms(50), "p95_ms": rep.percentile_ms(95),
+            "p99_ms": rep.percentile_ms(99), "shed": rep.n_shed,
+            "driver_lag_max_ms": rep.lag_max * 1e3,
+            "waves": [st.waves_full, st.waves_deadline, st.waves_drain],
+            "occupancy": st.wave_occupancy,
+            "padding_waste": st.padding_waste_frac, "wall_s": wall}
+        o = out[name]
+        log(f"[serve_align] {name}: {o['pairs']:,} pairs, "
+            f"{o['threads']} thread(s); batch mode ({output}s) "
+            f"{o['batch_pairs_per_s']:,.0f} pairs/s; offered "
+            f"{o['offered_pairs_per_s']:,.0f} pairs/s; sustained "
+            f"{o['sustained_pairs_per_s']:,.0f} pairs/s; p50 / p95 / p99 "
+            f"{o['p50_ms']:.2f} / {o['p95_ms']:.2f} / {o['p99_ms']:.2f} ms; "
+            f"shed {o['shed']}; driver lag max "
+            f"{o['driver_lag_max_ms']:.2f} ms; waves full / deadline / "
+            f"drain {o['waves']}; occupancy {o['occupancy']:.3f}, padding "
+            f"waste {o['padding_waste']:.3f}; launches {launches[name]} "
+            f"for {st.n_waves} waves; "
+            f"scores equal batch mode, {min(512, len(rows))} Gotoh"
+            + (", every CIGAR re-scored" if name == "cigar" else "")
+            + f"; {wall:.1f}s on {card}")
+    return launches, out
+
+
 def phase_band_grid(K, S, ops, dev):
-    """Phase 7: the CUDA band kernel vs its plain version on 1 kb pairs ->
+    """Phase 9: the CUDA band kernel vs its plain version on 1 kb pairs ->
     (max |err| of the score cases, of the trace cases)."""
     from repro_torch.core.engine import AlignmentEngine
     from repro_torch.data.reads import ReadPairSpec, generate_pairs
@@ -846,7 +1158,7 @@ def phase_band_grid(K, S, ops, dev):
 
 
 def phase_band_root(K, S, ops, dev):
-    """Phase 7b: the band at the 10 kb root shape -> timing records for the
+    """Phase 9b: the band at the 10 kb root shape -> timing records for the
     score (1,024-pair wave) and trace (64-pair wave) variants.  Each wave is
     held whole against the plain version (so the exit steps that its bound
     counts are checked), and its block 0 timed on its own; the full-width
@@ -941,7 +1253,7 @@ def rescore_all(res, P, plen, T, tlen, pen):
 
 
 def phase_band_path(K, S, dev):
-    """Phase 8: the banded path through the engine, then the yardsticks ->
+    """Phase 10: the banded path through the engine, then the yardsticks ->
     (launches, summary dict)."""
     import numpy as np
     from repro_torch.core.engine import AlignmentEngine
@@ -1216,7 +1528,7 @@ def attention_fp32(q, k, v, causal, drop=None):
 
 
 def phase_flash_grid(FK, fops, dev):
-    """Phase 9a: every CUDA flash body that takes the inputs against the
+    """Phase 11a: every CUDA flash body that takes the inputs against the
     plain version over {MHA 8/8, GQA 16/8, MQA 16/1, 64/8 (qwen3-32b, G 8),
     48/1 (granite-34b, G 48: 96 live rows of the wgmma body's 128)} x
     {causal, non-causal} x {fp32, bf16} x dh {64, 128}, B 2, S in {128,
@@ -1263,7 +1575,7 @@ def phase_flash_grid(FK, fops, dev):
 
 
 def phase_flash_control(FK, dev):
-    """Phase 9b: the bf16 check must pass a sound attention and fail one
+    """Phase 11b: the bf16 check must pass a sound attention and fail one
     that leaves a key tile out.  At S 2,048 (GQA 16/8, dh 128, B 2, causal
     and not), against the plain version (512-key tiles): the plain version
     on 64-key tiles, the materialised fp32 attention (p rounded against
@@ -1304,7 +1616,7 @@ def phase_flash_control(FK, dev):
 
 
 def phase_flash_timing(FK, fops, dev):
-    """Phase 9c: at the served shape (B 8, S 2,048, H 16, KV 8, dh 128,
+    """Phase 11c: at the served shape (B 8, S 2,048, H 16, KV 8, dh 128,
     bf16, causal) the wgmma body (the path's), the mma.sync and fp32-pipe
     bodies, the plain version and one PyTorch call that computes the same
     function (scaled_dot_product_attention, the yardstick, never on the
@@ -1360,7 +1672,7 @@ def phase_flash_timing(FK, fops, dev):
 
 
 def phase_serve_defaults(FK):
-    """Phase 10a: the JAX defaults through the port's launcher at full width
+    """Phase 12a: the JAX defaults through the port's launcher at full width
     (``serve.main(["--arch", "qwen3-0.6b"])``: 8 requests of 4-16 tokens,
     32 new each, batch 4, two waves); every prefill layer must launch the
     flash kernel, on the wgmma body."""
@@ -1386,7 +1698,7 @@ def phase_serve_defaults(FK):
 
 
 def phase_serve_long(FK, dev, card):
-    """Phase 10b: one BatchServer wave of 8 prompts of 2,048 tokens, 32 new
+    """Phase 12b: one BatchServer wave of 8 prompts of 2,048 tokens, 32 new
     each, max_seq 4,096, at full width.  The prefill must launch the flash
     kernel once per layer; each launch is held against the plain version on
     its own inputs; for 2 requests the logits of prefill + decode (plain
@@ -1705,7 +2017,14 @@ def main() -> int:
             f"kernel {r['t_kernel']:.2f}s, gather {r['t_gather']:.2f}s) "
             f"on {card}")
 
-    # 7. the band kernel vs plain; 8. the banded path
+    # 7. read mapping; 8. the alignment service
+    map_launches, mapped = phase_map(K, card)
+    t0 = time.perf_counter()
+    sa_launches, served_align = phase_serve_align(K, card)
+    log(f"[serve_align] three runs and checks in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # 9. the band kernel vs plain; 10. the banded path
     from repro_torch.kernels.wfa import ops as kops
     t0 = time.perf_counter()
     band_worst = phase_band_grid(K, S, kops, dev)
@@ -1718,7 +2037,7 @@ def main() -> int:
     log(f"[banded] path and yardsticks in {time.perf_counter() - t0:.1f}s "
         f"on {card}")
 
-    # 9. the flash kernel vs plain; 10. the serve path at full width
+    # 11. the flash kernel vs plain; 12. the serve path at full width
     torch.backends.cuda.matmul.allow_tf32 = False   # plain fp32 in fp32
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -1734,7 +2053,7 @@ def main() -> int:
 
     log(f"[time] all phases in {time.perf_counter() - t_start:.1f}s")
 
-    # 11. report
+    # 13. report
     src = "src/repro_torch/kernels/wfa/csrc/wfa.cu"
     kernels = []
     for name, variant in (("wfa_score", "score"), ("wfa_trace", "trace")):
@@ -1743,7 +2062,10 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": "src/repro/kernels/wfa/kernel.py:334",
-            "launches": launches[variant] + b_launches[variant],
+            # the main, BiWFA, mapping and alignment-service paths
+            "launches": (launches[variant] + b_launches[variant]
+                         + map_launches[variant]
+                         + sum(v[variant] for v in sa_launches.values())),
             "max_abs_err": max(worst, *(timing[f"{name}{x}"]["max_abs_err"]
                                         for x in ("", "_recovery", "_10kb"))),
             # kernel and plain on the same 65,536-pair wave of 100 bp

@@ -1,5 +1,6 @@
-"""Batched WFA pairwise alignment on PyTorch: scoring models, the ring
-solvers, the backend registry, the engine and its streaming session."""
+"""Batched WFA pairwise alignment on PyTorch: scoring models, the
+full-history and ring solvers, the backend registry, the engine and its
+streaming session."""
 from repro_torch.core.penalties import (DEFAULT, Penalties,  # noqa: F401
                                         band_bound, problem_dims,
                                         score_bound)
@@ -9,8 +10,8 @@ from repro_torch.core.scoring import (AdaptiveBand, Edit,  # noqa: F401
                                       ZDrop, as_heuristic, as_model,
                                       from_reference, parse_heuristic,
                                       parse_penalties)
-from repro_torch.core.wavefront import (WFAResult, wfa_scores,  # noqa: F401
-                                        wfa_scores_packed)
+from repro_torch.core.wavefront import (WFAResult, wfa_forward,  # noqa: F401
+                                        wfa_scores, wfa_scores_packed)
 from repro_torch.core.backends import (available_backends,  # noqa: F401
                                        cigar_backends, get_backend,
                                        register_backend)

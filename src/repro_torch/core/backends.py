@@ -28,14 +28,16 @@ backends without one use that shared solver.
 asked XLA to alias input buffers.  ``dispatch(fn, *arrays)`` intercepts
 each call.
 
-Built-ins (both serve every penalty model and heuristic):
+Built-ins (all serve every penalty model and heuristic):
 
+* ``"ref"``    — full-history WFA in plain PyTorch; pointer-chase CIGAR
+                 traceback over the ``[s_max+1, B, K]`` history
 * ``"ring"``   — rolling-window WFA in plain PyTorch; packed backtrace
 * ``"kernel"`` — the CUDA WFA kernel (its plain version on CPU tensors);
                  packed backtrace OR-accumulated in registers; the CUDA
                  meet kernel as its meet variant
 
-``ref`` (full history) and ``shardmap`` (one shard per card) come later.
+``shardmap`` (one shard per card) comes later.
 """
 from __future__ import annotations
 
@@ -171,6 +173,23 @@ def model_backends(kind: str) -> List[str]:
 
 # ---------------------------------------------------------------------------
 # Built-in backends.
+
+
+def _ref_trace(pattern, text, plen, tlen, *, pen, s_max, k_max, heur=None,
+               begin_state="M", end_state="M"):
+    return wf.wfa_forward(pattern, text, plen, tlen, pen=pen, s_max=s_max,
+                          k_max=k_max, keep_history=True, heur=heur,
+                          begin_state=begin_state, end_state=end_state,
+                          device=pattern.device)
+
+
+@register_backend("ref", trace_variant=_ref_trace, models=ALL_MODELS,
+                  doc="full-history WFA in plain PyTorch; full-history "
+                      "CIGAR traceback")
+def _ref_backend(pattern, text, plen, tlen, *, pen, s_max, k_max, heur=None):
+    return wf.wfa_forward(pattern, text, plen, tlen, pen=pen, s_max=s_max,
+                          k_max=k_max, keep_history=False, heur=heur,
+                          device=pattern.device)
 
 
 def _ring_trace(pattern, text, plen, tlen, *, pen, s_max, k_max, heur=None,

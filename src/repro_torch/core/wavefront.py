@@ -32,12 +32,15 @@ at the first ``s`` with ``M_s[m-n] == m``.  Invalid cells hold ``NEG``.  A
 wavefront heuristic (``heur=``) prunes k-lanes after each step
 (:func:`keep_mask`).
 
-Two modes are ported here (both over a ring of depth ``window``):
+Three modes:
 
-* :func:`wfa_scores` — score only;
-* :func:`wfa_scores_packed` — plus 2-bit per-cell provenance codes packed
-  16 steps to an int32 word (``[n_trace_words, B, K]``, three planes for
-  affine models, one for linear), which ``core.cigar`` decodes.
+* :func:`wfa_forward` — the full ``[s_max+1, B, K]`` offset history (M/I/D
+  for affine models, M only for linear ones), which ``core.cigar`` chases
+  pointer by pointer (the ``ref`` backend);
+* :func:`wfa_scores` — score only, over a ring of depth ``window``;
+* :func:`wfa_scores_packed` — the ring plus 2-bit per-cell provenance
+  codes packed 16 steps to an int32 word (``[n_trace_words, B, K]``, three
+  planes for affine models, one for linear), which ``core.cigar`` decodes.
 
 Provenance code values (2 bits each, 0 = invalid/never-written):
 
@@ -52,7 +55,7 @@ without a meet variant and is the oracle of the CUDA meet kernel.
 Both ring solvers take ``band_cap``: the *compacting band* carries the
 fronts at a compact width ``Kc`` in a per-pair window that re-centres on the
 live diagonals each step (:func:`_scores_band`); the packed planes stay full
-width.  The full-history solver is not ported yet.
+width.
 """
 from __future__ import annotations
 
@@ -84,8 +87,8 @@ def n_trace_words(s_max: int) -> int:
 
 class WFAResult(NamedTuple):
     score: torch.Tensor                 # [B] int32 cost, -1 if > s_max
-    m_hist: Optional[torch.Tensor]      # full history: not ported (None)
-    i_hist: Optional[torch.Tensor]
+    m_hist: Optional[torch.Tensor]      # [s_max+1, B, K] (wfa_forward) or None
+    i_hist: Optional[torch.Tensor]      # None for linear models
     d_hist: Optional[torch.Tensor]
     n_steps: int                        # score-loop trips (telemetry)
     m_bt: Optional[torch.Tensor] = None  # [n_trace_words, B, K] packed codes
@@ -532,6 +535,73 @@ def _solve(pattern, text, plen, tlen, pen, s_max, k_max, heur, band_cap,
         s += 1
     bts = bts + (None,) * (3 - len(bts)) if packed else (None,) * 3
     return WFAResult(score, None, None, None, s, *bts)
+
+
+def wfa_forward(pattern, text, plen, tlen, *, pen, s_max: int, k_max: int,
+                keep_history: bool = True, heur=None, begin_state: str = "M",
+                end_state: str = "M", device=None) -> WFAResult:
+    """Full-history batched WFA.
+
+    pattern/text: ``[B, Lp]``/``[B, Lt]`` integer codes (padding never
+    read).  Returns each pair's cost and, with ``keep_history``, the
+    ``[s_max+1, B, K]`` offset history for traceback (M/I/D for affine
+    models, M only for linear ones; rows past the last step stay ``NEG``).
+    Without it only the ``window`` newest rows are kept while the loop runs
+    and the histories come back ``None``.
+
+    ``begin_state``/``end_state`` (affine only) seed an already-open gap at
+    the origin / end the alignment inside a gap run (BiWFA sub-alignments).
+    """
+    model, heur = _resolve(pen, heur)
+    _check_states(model, begin_state, end_state)
+    pattern, text, plen, tlen = _prep(pattern, text, plen, tlen, device)
+    dev = pattern.device
+    B = pattern.shape[0]
+    K = 2 * k_max + 1
+    W = model.window
+    affine = model.kind == "affine"
+    ks = torch.arange(K, dtype=torch.int32, device=dev) - k_max
+    new = lambda *shape: torch.full(shape, NEG, dtype=torch.int32,
+                                    device=dev)
+
+    # one buffer per front: the whole history, or a ring of the ``W``
+    # newest rows (step s lives in row s % depth)
+    depth = s_max + 1 if keep_history else W
+    fronts = [new(depth, B, K) for _ in range(3 if affine else 1)]
+
+    # s = 0: M_0[k=0] = LCP(p, t); I/D invalid unless an open gap is
+    # inherited from the caller (begin-state seeding)
+    seed = new(B, K)
+    seed[:, k_max] = 0
+    fronts[0][0] = _extend(seed, pattern, text, plen, tlen, ks)
+    if affine and begin_state != "M":
+        fronts["MID".index(begin_state)][0] = seed
+    end = "MID".index(end_state)
+    score = torch.where(_target_reached(fronts[end][0], plen, tlen, k_max),
+                        0, -1).to(torch.int32)
+    neg = new(B, K)
+
+    def reader(rows, s):
+        return lambda delta: rows[(s - delta) % depth] if s >= delta else neg
+
+    s = 1
+    while s <= s_max and bool((score < 0).any()):
+        if affine:
+            out = _next_affine(model, reader(fronts[0], s), pattern, text,
+                               plen, tlen, ks, reader(fronts[1], s),
+                               reader(fronts[2], s))
+        else:
+            out = (_next_linear(model, reader(fronts[0], s), pattern, text,
+                                plen, tlen, ks),)
+        reached = _target_reached(out[end], plen, tlen, k_max)
+        score = torch.where((score < 0) & reached, s, score).to(torch.int32)
+        out = _prune_step(heur, plen, tlen, ks, *out)
+        for rows, row in zip(fronts, out if affine else (out,)):
+            rows[s % depth] = row
+        s += 1
+    if not keep_history:
+        return WFAResult(score, None, None, None, s)
+    return WFAResult(score, *fronts, *[None] * (3 - len(fronts)), s)
 
 
 def wfa_scores(pattern, text, plen, tlen, *, pen, s_max: int, k_max: int,

@@ -12,10 +12,13 @@ back to back.  Throughput is reported both ways the paper does: *Total*
         --chunk-pairs 65536 --verify 512            # on the card
     python -m repro_torch.launch.align --device cpu --pairs 64 --verify 8
 
-``--backend ring|kernel`` selects a registered backend
-(``repro_torch.core.backends``); ``--output score|cigar`` the result
-pathway (``cigar``: full alignments, with identity stats); ``--trace
-packed|bidir`` how CIGARs are made: the packed backtrace, or the BiWFA
+``--backend ref|ring|kernel`` selects a registered backend
+(``repro_torch.core.backends``); ``--output score|cigar|sam`` the result
+pathway (``cigar``: full alignments, with identity stats; ``sam``: the
+same plus one SAM record per pair, written to ``--sam-out``, default
+stdout, where the mutated mate (*text*) is the read and the sampled
+reference read (*pattern*) its reference); ``--trace packed|bidir`` how
+CIGARs are made: the packed backtrace, or the BiWFA
 meet-in-the-middle recursion (``repro_torch.biwfa``: exact CIGARs in O(s)
 trace memory, for noisy long reads)::
 
@@ -26,7 +29,7 @@ trace memory, for noisy long reads)::
 ``--penalties``/``--heuristic`` the scoring model and
 wavefront pruning; ``--reads``/``--refs`` real FASTA/FASTQ(.gz) pair files
 in place of the synthetic generator; ``--device`` where the waves run
-(default ``cuda``).  SAM output waits for the mapping package's port.
+(default ``cuda``).
 """
 from __future__ import annotations
 
@@ -54,6 +57,35 @@ def _run_sync(engine, P, plen, T, tlen, output):
     with obs.trace.span("align.sync", cat="align"):
         res = engine.align_packed(P, plen, T, tlen, output=output)
     return res.scores, res.cigars, res.stats, time.perf_counter() - t0
+
+
+def write_sam(out, scores, cigars, plen, T, tlen, cl=None) -> None:
+    """Full SAM stream via the shared ``repro_torch.mapping.sam`` writer:
+    an @HD/@SQ/@PG header (one @SQ per reference read) and one record per
+    pair.
+
+    The mate (*text*) maps onto reference read i at POS 1, MAPQ 255
+    (unavailable: there is no candidate ranking here).  Unresolved pairs
+    (score < 0) are written as unmapped records (FLAG 4, no position, no
+    alignment score).
+    """
+    from repro_torch.mapping.extend import Mapping
+    from repro_torch.mapping.sam import (header_lines, mapping_record,
+                                         unmapped_record)
+    names = [f"ref{i}" for i in range(len(scores))]
+    for line in header_lines(names, [int(n) for n in plen],
+                             program="repro_torch.launch.align",
+                             cl=cl):
+        out.write(line + "\n")
+    for i, (s, ops) in enumerate(zip(scores, cigars)):
+        text = T[i, : int(tlen[i])]
+        if int(s) < 0:
+            line = unmapped_record(f"read{i}", text)
+        else:
+            m = Mapping(read_id=i, ref_id=i, pos=0, strand=0, mapq=255,
+                        score=int(s), ops=ops)
+            line = mapping_record(m, text, f"read{i}", f"ref{i}")
+        out.write(line + "\n")
 
 
 def main(argv=None, summary: Optional[dict] = None) -> int:
@@ -87,9 +119,13 @@ def main(argv=None, summary: Optional[dict] = None) -> int:
                     default="stream",
                     help="pipelined session (default), blocking align(), "
                          "or both back-to-back")
-    ap.add_argument("--output", choices=("score", "cigar"),
+    ap.add_argument("--output", choices=("score", "cigar", "sam"),
                     default="score",
-                    help="scores only (default) or full CIGAR alignments")
+                    help="scores only (default), full CIGAR alignments, "
+                         "or SAM records")
+    ap.add_argument("--sam-out", default="-", metavar="PATH",
+                    help="where --output sam writes records (default "
+                         "stdout)")
     ap.add_argument("--trace", choices=("packed", "bidir"),
                     default="packed",
                     help="traceback variant for --output cigar: 'packed' "
@@ -123,10 +159,14 @@ def main(argv=None, summary: Optional[dict] = None) -> int:
     pen = (scoring.parse_penalties(args.penalties)
            if args.penalties else scoring.as_model(wfa_paper.pen))
     heur = scoring.parse_heuristic(args.heuristic)
-    out_mode = args.output
+    out_mode = "score" if args.output == "score" else "cigar"
+    # SAM on stdout must stay a valid SAM stream: the progress report goes
+    # to stderr then
+    sam_to_stdout = args.output == "sam" and args.sam_out == "-"
+    log_file = sys.stderr if sam_to_stdout else sys.stdout
 
     def log(*a, **kw):
-        print(*a, flush=True, **kw)
+        print(*a, file=log_file, flush=True, **kw)
 
     if (args.reads is None) != (args.refs is None):
         ap.error("--reads and --refs must be given together")
@@ -237,6 +277,16 @@ def main(argv=None, summary: Optional[dict] = None) -> int:
         t_stream = runs[1][1][3]
         log(f"[align] stream vs sync wall: {t_sync:.3f}s -> {t_stream:.3f}s "
             f"({t_sync / t_stream:.2f}x)")
+
+    if args.output == "sam":
+        cl = "repro_torch.launch.align " + " ".join(argv or sys.argv[1:])
+        if args.sam_out == "-":
+            write_sam(sys.stdout, scores, cigars, plen, T, tlen, cl=cl)
+        else:
+            with open(args.sam_out, "w") as f:
+                write_sam(f, scores, cigars, plen, T, tlen, cl=cl)
+            log(f"[align] wrote {args.pairs} SAM records to "
+                f"{args.sam_out}")
 
     if args.verify:
         n = min(args.verify, args.pairs)

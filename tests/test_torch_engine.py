@@ -82,12 +82,13 @@ def test_streamed_session_matches_sync():
 
 
 def test_registry_and_backend_opts():
-    assert t_backends.available_backends() == ["kernel", "ring"]
-    for name in ("kernel", "ring"):
+    assert t_backends.available_backends() == ["kernel", "ref", "ring"]
+    for name in ("kernel", "ref", "ring"):
         spec = t_backends.get_backend(name)
         assert spec.supports_cigar and spec.accepts_heuristic("cigar")
         assert spec.models == ("affine", "linear")
     assert t_backends.get_backend("ring").accepts_states()
+    assert t_backends.get_backend("ref").accepts_states()
     # the CUDA trace kernel takes no boundary states (stateful BiWFA leaves
     # go to ring); the kernel backend ships the meet kernel
     kspec = t_backends.get_backend("kernel")
@@ -100,7 +101,7 @@ def test_registry_and_backend_opts():
         AlignmentEngine(backend="kernel", device="cpu",
                         backend_opts={"nope": 1})
     with pytest.raises(KeyError, match="unknown alignment backend"):
-        AlignmentEngine(backend="ref", device="cpu")
+        AlignmentEngine(backend="shardmap", device="cpu")
 
 
 def test_block_pairs_option_keeps_scores():
