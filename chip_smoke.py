@@ -118,7 +118,32 @@ Phases (each raises on failure, and the script then exits non-zero):
    cache) must equal those of one ``forward`` (flash kernel) over the same
    tokens within the stated bf16 tolerance; prefill and decode tokens/s and
    peak memory are printed;
-13. report — a ``kernels`` JSON line, the card's name and power limit, and
+13. telemetry — ``repro_torch.launch.align --backend kernel`` on the main
+   path's 65,536 pairs in waves of 4,096 with ``--trace-out``: streamed,
+   streamed with ``--output cigar``, and blocking (``--mode sync``).  The
+   score (the trace) kernel must launch, the three runs must give the same
+   scores, and each capture must hold one ``wave.scatter`` and one
+   ``wave.kernel`` span per wave of the session.  In the blocking capture
+   every wave's kernel seconds by CUDA events (its span's ``t_kernel``)
+   must lie inside that span's host duration, and they must add up to the
+   session's kernel phase.  ``repro_torch.launch.obs_report
+   --assert-phases`` on each capture and ``--diff`` over the two streamed
+   ones must exit 0; the phase shares and the pipeline report (time with
+   waves in flight as the host sees them, bubbles, host overlap, mean
+   depth) are printed;
+14. shardmap — the launcher with ``--backend shardmap`` (one shard of the
+   host's mesh) on the same pairs must verify 512 and give the kernel
+   run's scores, and with ``--output cigar`` every CIGAR must re-score to
+   its cost; then ``AlignmentEngine.align_packed`` on one shard and on two
+   shards of the one card (``make_mesh((2,), ("pairs",), devices=[cuda:0,
+   cuda:0])``) must give the kernel and ring backends' scores, timed in two
+   turns; the two-shard run must pad rows to multiples of 2 (3 pairs to
+   4), and the per-shard steps of its pass-1 wave are printed;
+15. shims — ``WFAligner(backend="kernel")`` and ``PIMBatchAligner`` on
+   4,096 pairs must warn ``DeprecationWarning``, launch the score kernel
+   and give ``AlignmentEngine.align``'s scores, and ``python -m
+   repro_torch.examples.quickstart`` must exit 0 on the card;
+16. report — a ``kernels`` JSON line, the card's name and power limit, and
    the final ``{"ok": true, ...}`` line.
 
 It needs one card and exits non-zero without one.  It imports nothing of
@@ -162,6 +187,10 @@ MAP_LAUNCHER_READS = 4096
 SERVE_REQUESTS = 4096
 SERVE_PAIRS_PER_REQUEST = 16
 SERVE_WAVE = 8192
+# the telemetry captures: the main path's pairs, waves of 4,096 so that the
+# pipeline holds several waves in flight
+OBS_WAVE = 4096
+SHIM_PAIRS = 4096
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 INT32_OPS_PER_S = 16.7e12      # 132 SMs x 64 INT32 lanes x 1.98 GHz
 BF16_FLOPS_PER_S = 989e12      # H100 SXM tensor cores, dense bf16
@@ -1843,6 +1872,283 @@ def phase_serve_long(FK, dev, card):
     return dict(launches=launches, max_abs_err=err, share=share)
 
 
+def phase_obs(K):
+    """Phase 13: two traced streamed runs of the launcher on the kernel
+    backend (scores, then ``--output cigar``) and one traced blocking run,
+    read back by the port's ``analyze`` and ``obs_report`` -> (launches,
+    per-run report, the score run's scores)."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.launch import align
+    from repro_torch.obs import analyze, trace
+
+    common = ["--backend", "kernel", "--pairs", str(WAVE), "--read-len",
+              str(READ_LEN), "--edit-frac", str(EDIT_FRAC), "--chunk-pairs",
+              str(OBS_WAVE), "--verify", "512", "--device", "cuda"]
+    launches, report, scores = {"score": 0, "trace": 0}, {}, None
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name, mode, extra, variant in (
+                ("score", "stream", [], "score"),
+                ("cigar", "stream", ["--output", "cigar"], "trace"),
+                ("sync", "sync", [], "score")):
+            paths[name] = os.path.join(tmp, f"{name}.json")
+            summary = {}
+            trace.reset()
+            K.reset_launches()
+            rc = align.main([*common, "--mode", mode, *extra,
+                             "--trace-out", paths[name]], summary)
+            got = dict(K.LAUNCHES)
+            trace.reset()
+            if rc != 0 or summary.get("verified") != 512:
+                raise AssertionError(f"the traced {name} run failed")
+            if got[variant] == 0:
+                raise AssertionError(f"the traced {name} run launched no "
+                                     f"{variant} kernel: {got}")
+            if scores is None:
+                scores = summary["scores"]
+            elif not np.array_equal(scores, summary["scores"]):
+                raise AssertionError(f"the traced {name} run's scores "
+                                     f"differ from the score run's")
+            for k in launches:
+                launches[k] += got[k]
+            tr = analyze.Trace.from_file(paths[name])
+            pt = analyze.phase_accounting(tr)
+            rep = analyze.pipeline_analysis(tr)
+            waves = pt.get("kernel").count
+            if mode == "stream" and waves != summary["stream_waves"]:
+                raise AssertionError(
+                    f"{waves} wave.kernel spans for "
+                    f"{summary['stream_waves']} waves of the session ({name})")
+            if waves < WAVE // OBS_WAVE or pt.get("scatter").count != waves:
+                raise AssertionError(
+                    f"{pt.get('scatter').count} wave.scatter and {waves} "
+                    f"wave.kernel spans for {WAVE // OBS_WAVE} or more "
+                    f"waves ({name})")
+            billed = summary[mode]["t_kernel"]
+            device_s = None
+            if mode == "sync":
+                # a blocking session times each kernel by CUDA events (copy
+                # in done to kernel done) and writes it into its wave's
+                # wave.scatter span, which waits for that kernel on the
+                # host: each device interval must lie inside its span (2 us
+                # for the trace's rounding), and the spans' device seconds
+                # must add up to the session's kernel phase
+                dev = [sp for sp in tr.spans if sp.name == "wave.scatter"]
+                if any("t_kernel" not in sp.args for sp in dev):
+                    raise AssertionError("a blocking wave.scatter span "
+                                         "lacks its t_kernel")
+                device_s = sum(sp.args["t_kernel"] for sp in dev)
+                over = [(sp.args["t_kernel"] * 1e6, sp.dur) for sp in dev
+                        if not 0 < sp.args["t_kernel"] * 1e6 <= sp.dur + 2]
+                if over:
+                    raise AssertionError(
+                        f"kernel seconds by CUDA events outside their "
+                        f"host spans (us, us): {over[:4]}")
+                if abs(device_s - billed) > 1e-9 * len(dev) + 1e-12:
+                    raise AssertionError(
+                        f"the spans' kernel seconds {device_s!r} against "
+                        f"the session's {billed!r}")
+            span_s = pt.total_s("kernel")
+            shares = {ph: pt.share(ph) for ph in analyze.PHASE_ORDER
+                      if ph in pt.stats}
+            report[name] = {
+                "mode": mode, "waves": waves, "launches": got,
+                "shares": shares,
+                "phase_s": {ph: pt.total_s(ph) for ph in shares},
+                "wall_s": pt.wall_us / 1e6,
+                "kernel_span_s": span_s, "kernel_billed_s": billed,
+                "kernel_events_s": device_s,
+                "busy_s": rep.busy_us / 1e6, "span_s": rep.span_us / 1e6,
+                "bubbles": len(rep.bubbles),
+                "bubble_s": rep.bubble_us / 1e6,
+                "host_overlap": rep.host_overlap_frac,
+                "mean_inflight": rep.mean_inflight,
+                "total_pairs_per_s": summary[mode]["total_pairs_per_s"]}
+            events = ("" if device_s is None else
+                      f", kernels by CUDA events {device_s:.6f} s")
+            log(f"[obs] {name} ({mode}): {waves} waves, launches {got}; "
+                f"phase shares " + ", ".join(f"{ph} {v:.4f}" for ph, v
+                                             in shares.items())
+                + f" of {sum(report[name]['phase_s'].values()):.4f} s "
+                f"accounted; wave.kernel spans {span_s:.6f} s (session "
+                f"kernel phase {billed:.6f} s{events}); in flight (host "
+                f"view) {rep.busy_us / 1e6:.4f} of {rep.span_us / 1e6:.4f} "
+                f"s, {len(rep.bubbles)} bubbles ({rep.bubble_us / 1e6:.6f} "
+                f"s), host overlap {rep.host_overlap_frac:.4f}, mean depth "
+                f"{rep.mean_inflight:.3f}")
+        for args in ([paths["score"], "--assert-phases"],
+                     [paths["cigar"], "--assert-phases"],
+                     [paths["sync"], "--assert-phases"],
+                     ["--diff", paths["score"], paths["cigar"]]):
+            r = subprocess.run([sys.executable, "-m",
+                                "repro_torch.launch.obs_report", *args],
+                               env=env, capture_output=True, text=True,
+                               timeout=300)
+            if r.returncode != 0:
+                raise AssertionError(f"obs_report {args} exited "
+                                     f"{r.returncode}: {r.stderr[-2000:]}")
+            shown = r.stdout.replace(tmp + os.sep, "")
+            log("[obs] obs_report " + " ".join(
+                os.path.basename(a) for a in args) + ":\n" + "\n".join(
+                    "    " + ln for ln in shown.splitlines()[:24]))
+    return launches, report, scores
+
+
+def phase_shardmap(K, obs_scores):
+    """Phase 14: the shardmap backend (the ring solver per mesh shard) ->
+    per-run pairs/s.  Through the launcher on one shard of the host's mesh,
+    scores and CIGARs; then one and two shards of the card against the
+    kernel and ring backends on the same pairs, the per-shard steps of a
+    two-shard wave, and padding quantised to the shard count."""
+    import types
+    import numpy as np
+    import torch
+    from repro_torch.core import wavefront as wf
+    from repro_torch.core.engine import AlignmentEngine, _quantize_rows
+    from repro_torch.core.engine import _fit_width
+    from repro_torch.core.penalties import DEFAULT
+    from repro_torch.core.scoring import as_model
+    from repro_torch.data.reads import ReadPairSpec, generate_pairs
+    from repro_torch.launch import align
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+
+    common = ["--backend", "shardmap", "--pairs", str(WAVE), "--read-len",
+              str(READ_LEN), "--edit-frac", str(EDIT_FRAC), "--chunk-pairs",
+              str(WAVE), "--verify", "512", "--device", "cuda"]
+    sm = {}
+    if align.main([*common, "--mode", "both"], sm) != 0:
+        raise AssertionError("launcher failed on the shardmap backend")
+    if not np.array_equal(sm["scores"], obs_scores):
+        n = int((sm["scores"] != obs_scores).sum())
+        raise AssertionError(f"shardmap and kernel scores differ on {n} "
+                             f"pairs")
+    cig = {}
+    if align.main([*common, "--mode", "sync", "--output", "cigar"],
+                  cig) != 0:
+        raise AssertionError("launcher failed on the shardmap CIGAR path")
+    P, plen, T, tlen = generate_pairs(ReadPairSpec(
+        n_pairs=WAVE, read_len=READ_LEN, edit_frac=EDIT_FRAC, seed=0))
+    t0 = time.perf_counter()
+    n = rescore_all(types.SimpleNamespace(scores=cig["scores"],
+                                          cigars=cig["cigars"]),
+                    P, plen, T, tlen, as_model(DEFAULT))
+    log(f"[shardmap] launcher: scores equal the kernel backend's on {WAVE} "
+        f"pairs; {n} CIGARs re-score to their cost "
+        f"({time.perf_counter() - t0:.1f}s)")
+
+    dev = torch.device("cuda", 0)
+    mesh2 = make_mesh((2,), ("pairs",), devices=[dev, dev])
+    engines = {
+        "kernel": AlignmentEngine(backend="kernel", edit_frac=EDIT_FRAC,
+                                  device=dev),
+        "ring": AlignmentEngine(backend="ring", edit_frac=EDIT_FRAC,
+                                device=dev),
+        "shardmap-1": AlignmentEngine(backend="shardmap",
+                                      edit_frac=EDIT_FRAC,
+                                      mesh=make_host_mesh()),
+        "shardmap-2": AlignmentEngine(backend="shardmap",
+                                      edit_frac=EDIT_FRAC, mesh=mesh2)}
+    res, rates = {}, {}
+    for name, eng in engines.items():      # warm, then two timed turns
+        eng.align_packed(P, plen, T, tlen)
+    for turn in range(2):
+        for name, eng in engines.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[name] = eng.align_packed(P, plen, T, tlen)
+            rates.setdefault(name, []).append(
+                WAVE / (time.perf_counter() - t0))
+    for name, r in res.items():
+        if not np.array_equal(r.scores, res["kernel"].scores):
+            raise AssertionError(f"{name} scores differ from the kernel "
+                                 f"backend's")
+    st2 = res["shardmap-2"].stats
+    want_rows = sum(min(_quantize_rows(b.n_pairs, 2), WAVE)
+                    for b in st2.buckets)
+    if st2.n_workers != 2 or st2.rows_padded != want_rows \
+            or st2.rows_padded % 2:
+        raise AssertionError(f"two shards padded {st2.rows_padded} rows "
+                             f"(expected {want_rows}, a multiple of 2)")
+    odd = engines["shardmap-2"].align_packed(P[:3], plen[:3], T[:3],
+                                             tlen[:3])
+    if odd.stats.rows_padded != 4 or not np.array_equal(
+            odd.scores, res["kernel"].scores[:3]):
+        raise AssertionError(f"3 pairs on two shards padded "
+                             f"{odd.stats.rows_padded} rows, not 4")
+    b = st2.buckets[0]
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    shards = wf.wfa_shards(to(_fit_width(P, b.lmax)),
+                           to(_fit_width(T, b.lmax)), to(plen), to(tlen),
+                           pen=engines["kernel"].pen, s_max=b.s_max,
+                           k_max=b.k_max, mesh=mesh2)
+    steps = [r.n_steps for r in shards]
+    log(f"[shardmap] two shards of {dev}: rows padded {st2.rows_padded} "
+        f"(3 pairs -> {odd.stats.rows_padded}); per-shard steps of the "
+        f"pass-1 wave (s_max {b.s_max}): {steps}")
+    out = {name: {"pairs_per_s": v, "overflow": res[name].stats.n_overflow}
+           for name, v in rates.items()}
+    out["steps_two_shards"] = steps
+    out["launcher"] = {m: sm[m]["total_pairs_per_s"]
+                       for m in ("sync", "stream")}
+    log("[shardmap] blocking align_packed on " + f"{WAVE} pairs, pairs/s "
+        "(two turns): " + "; ".join(f"{k} {v[0]:,.0f} / {v[1]:,.0f}"
+                                    for k, v in rates.items()))
+    return out
+
+
+def phase_shims(K):
+    """Phase 15: the deprecated WFAligner and PIMBatchAligner on the kernel
+    backend, and the quickstart example -> launches."""
+    import warnings
+    import numpy as np
+    from repro_torch.core import PIMBatchAligner, WFAligner
+    from repro_torch.core.engine import AlignmentEngine
+    from repro_torch.data.reads import ReadPairSpec, generate_pairs
+
+    P, plen, T, tlen = generate_pairs(ReadPairSpec(
+        n_pairs=SHIM_PAIRS, read_len=READ_LEN, edit_frac=EDIT_FRAC, seed=21))
+    pats = [P[i, :plen[i]] for i in range(SHIM_PAIRS)]
+    txts = [T[i, :tlen[i]] for i in range(SHIM_PAIRS)]
+    want = AlignmentEngine(backend="kernel", edit_frac=EDIT_FRAC,
+                           device="cuda").align(pats, txts).scores
+    K.reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        al = WFAligner(backend="kernel", edit_frac=EDIT_FRAC)
+        pim = PIMBatchAligner(al)
+    kinds = [w.category for w in caught]
+    if kinds != [DeprecationWarning, DeprecationWarning]:
+        raise AssertionError(f"the shims warned {kinds}")
+    got = al.align(pats, txts)
+    scores, pim_stats = pim.run(pats, txts)
+    launches = dict(K.LAUNCHES)
+    if launches["score"] == 0:
+        raise AssertionError(f"the shims launched no score kernel: "
+                             f"{launches}")
+    for name, s in (("WFAligner", got.scores), ("PIMBatchAligner", scores)):
+        if not np.array_equal(s, want):
+            raise AssertionError(f"{name} scores differ from "
+                                 f"AlignmentEngine.align's")
+    log(f"[shims] WFAligner and PIMBatchAligner warned DeprecationWarning "
+        f"and equal AlignmentEngine.align on {SHIM_PAIRS} pairs; launches "
+        f"{launches}; PIMStats Total {pim_stats.throughput_total():,.0f} "
+        f"pairs/s, Kernel {pim_stats.throughput_kernel():,.0f} pairs/s")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "repro_torch.examples.quickstart"], env=env,
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"the quickstart exited {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    log(f"[shims] quickstart on the card in {time.perf_counter() - t0:.1f}s:"
+        "\n" + "\n".join("    " + ln for ln in r.stdout.splitlines()))
+    return launches
+
+
 def full_occupancy(K, S, lib):
     """The full-width launches of the main path's shapes (GapAffine(4,6,2),
     exact, 8 pairs a block: pass 1 and recovery at 100 bp, pass 1 at 10
@@ -2051,9 +2357,23 @@ def main() -> int:
     served = phase_serve_long(FK, dev, card)
     log(f"[serve] both runs and checks in {time.perf_counter() - t0:.1f}s")
 
+    # 13. telemetry captures read back; 14. shardmap; 15. the shims and the
+    # quickstart
+    t0 = time.perf_counter()
+    obs_launches, obs_runs, obs_scores = phase_obs(K)
+    log(f"[obs] three captures and reports in "
+        f"{time.perf_counter() - t0:.1f}s on {card}")
+    t0 = time.perf_counter()
+    shard = phase_shardmap(K, obs_scores)
+    log(f"[shardmap] phase in {time.perf_counter() - t0:.1f}s on {card}")
+    t0 = time.perf_counter()
+    shim_launches = phase_shims(K)
+    log(f"[shims] phase in {time.perf_counter() - t0:.1f}s")
+    log("[slice10] " + json.dumps({"obs": obs_runs, "shardmap": shard}))
+
     log(f"[time] all phases in {time.perf_counter() - t_start:.1f}s")
 
-    # 13. report
+    # 16. report
     src = "src/repro_torch/kernels/wfa/csrc/wfa.cu"
     kernels = []
     for name, variant in (("wfa_score", "score"), ("wfa_trace", "trace")):
@@ -2062,10 +2382,13 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": "src/repro/kernels/wfa/kernel.py:334",
-            # the main, BiWFA, mapping and alignment-service paths
+            # the main, BiWFA, mapping, alignment-service, telemetry-capture
+            # and shim paths
             "launches": (launches[variant] + b_launches[variant]
                          + map_launches[variant]
-                         + sum(v[variant] for v in sa_launches.values())),
+                         + sum(v[variant] for v in sa_launches.values())
+                         + obs_launches[variant]
+                         + shim_launches[variant]),
             "max_abs_err": max(worst, *(timing[f"{name}{x}"]["max_abs_err"]
                                         for x in ("", "_recovery", "_10kb"))),
             # kernel and plain on the same 65,536-pair wave of 100 bp

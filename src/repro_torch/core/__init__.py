@@ -1,6 +1,7 @@
 """Batched WFA pairwise alignment on PyTorch: scoring models, the
-full-history and ring solvers, the backend registry, the engine and its
-streaming session."""
+full-history, ring and per-shard solvers, the backend registry, the engine
+and its streaming session, and the deprecated ``WFAligner`` /
+``PIMBatchAligner`` shims."""
 from repro_torch.core.penalties import (DEFAULT, Penalties,  # noqa: F401
                                         band_bound, problem_dims,
                                         score_bound)
@@ -18,9 +19,12 @@ from repro_torch.core.backends import (available_backends,  # noqa: F401
 from repro_torch.core.cigar import (TracebackError,  # noqa: F401
                                     cigar_identity, cigar_string)
 from repro_torch.core.engine import (AlignmentEngine,  # noqa: F401
-                                     EngineResult, EngineStats, PIMStats,
-                                     encode, pack_batch, problem_bounds)
+                                     EngineResult, EngineStats, encode,
+                                     pack_batch, problem_bounds)
 from repro_torch.core.session import (AlignmentSession,  # noqa: F401
                                       SessionStats, Ticket)
 from repro_torch.core.gotoh import (gotoh_score, gotoh_score_vec,  # noqa: F401
                                     score_cigar)
+from repro_torch.core.aligner import AlignResult, WFAligner  # noqa: F401
+from repro_torch.core.pim import (PIMBatchAligner, PIMStats,  # noqa: F401
+                                  pair_sharding)

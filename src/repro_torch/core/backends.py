@@ -24,6 +24,8 @@ Every backend serves the score output through ``fn``; ``trace_variant``
 ``core.wavefront.wfa_bidir_meet``) serves the BiWFA driver's meet waves;
 backends without one use that shared solver.
 
+Backends that shard over a device mesh set ``needs_mesh`` and receive the
+engine's ``mesh`` (``repro_torch.launch.mesh.Mesh``) as a keyword.
 ``donate_args`` is kept for the registry's shape and has no effect: it
 asked XLA to alias input buffers.  ``dispatch(fn, *arrays)`` intercepts
 each call.
@@ -36,8 +38,10 @@ Built-ins (all serve every penalty model and heuristic):
 * ``"kernel"`` — the CUDA WFA kernel (its plain version on CPU tensors);
                  packed backtrace OR-accumulated in registers; the CUDA
                  meet kernel as its meet variant
-
-``shardmap`` (one shard per card) comes later.
+* ``"shardmap"`` — the ring solver per mesh shard (per-shard termination,
+                 zero collectives: the paper's "no inter-DPU
+                 communication"); trace variant runs the packed solver per
+                 shard
 """
 from __future__ import annotations
 
@@ -70,6 +74,7 @@ class BackendSpec:
     fn: Callable[..., wf.WFAResult]
     trace_variant: Optional[Callable[..., wf.WFAResult]] = None
     meet_variant: Optional[Callable] = None
+    needs_mesh: bool = False
     donate_args: Tuple[int, ...] = ()
     dispatch: Optional[Callable[..., wf.WFAResult]] = None
     models: Tuple[str, ...] = ("affine",)
@@ -124,6 +129,7 @@ _REGISTRY: Dict[str, BackendSpec] = {}
 def register_backend(name: str, fn: Optional[Callable] = None, *,
                      trace_variant: Optional[Callable] = None,
                      meet_variant: Optional[Callable] = None,
+                     needs_mesh: bool = False,
                      donate_args: Tuple[int, ...] = (),
                      dispatch: Optional[Callable] = None,
                      models: Tuple[str, ...] = ("affine",),
@@ -134,6 +140,7 @@ def register_backend(name: str, fn: Optional[Callable] = None, *,
         _REGISTRY[name] = BackendSpec(name=name, fn=f,
                                       trace_variant=trace_variant,
                                       meet_variant=meet_variant,
+                                      needs_mesh=needs_mesh,
                                       donate_args=tuple(donate_args),
                                       dispatch=dispatch,
                                       models=tuple(models),
@@ -244,4 +251,25 @@ def _kernel_backend(pattern, text, plen, tlen, *, pen, s_max, k_max,
     score = kops.wfa_align(pattern, text, plen, tlen, pen=pen, s_max=s_max,
                            k_max=k_max, heur=heur, block_pairs=block_pairs,
                            band_cap=band_cap, device=pattern.device)
+    return wf.WFAResult(score, None, None, None, int(s_max))
+
+
+def _shardmap_trace(pattern, text, plen, tlen, *, pen, s_max, k_max, mesh,
+                    heur=None, band_cap=None):
+    score, m_bt, i_bt, d_bt = wf.wfa_trace_shardmap(
+        pattern, text, plen, tlen, pen=pen, s_max=s_max, k_max=k_max,
+        mesh=mesh, heur=heur, band_cap=band_cap)
+    return wf.WFAResult(score, None, None, None, int(s_max), m_bt, i_bt,
+                        d_bt)
+
+
+@register_backend("shardmap", needs_mesh=True, trace_variant=_shardmap_trace,
+                  models=ALL_MODELS,
+                  doc="ring solver per mesh shard: per-shard termination, "
+                      "zero collectives; per-shard packed backtrace")
+def _shardmap_backend(pattern, text, plen, tlen, *, pen, s_max, k_max, mesh,
+                      heur=None, band_cap=None):
+    score = wf.wfa_scores_shardmap(pattern, text, plen, tlen, pen=pen,
+                                   s_max=s_max, k_max=k_max, mesh=mesh,
+                                   heur=heur, band_cap=band_cap)
     return wf.WFAResult(score, None, None, None, int(s_max))

@@ -3,8 +3,9 @@
 The counterpart of ``repro.core.engine``; every policy on the path from a
 batch of read pairs to scores lives here:
 
-* **backend registry** (``core.backends``) — ``ring`` / ``kernel`` (and
-  plug-ins via ``register_backend``) are looked up by name;
+* **backend registry** (``core.backends``) — ``ref`` / ``ring`` /
+  ``kernel`` / ``shardmap`` (and plug-ins via ``register_backend``) are
+  looked up by name;
 * **length-bucketed batching** — pairs are grouped by the power of two of
   ``max(plen, tlen)``, each bucket with its own static ``(L, s_max,
   k_max)`` problem shape;
@@ -117,6 +118,15 @@ def _exact_worst_score(pen, plens, tlens) -> int:
              + np.where(plens != tlens,
                         pen.o + pen.e * np.abs(tlens - plens), 0))
     return int(worst.max(initial=0)) + 1
+
+
+def pair_sharding(mesh) -> Optional[List[torch.device]]:
+    """The pair axis over ALL mesh axes — every device is a 'DPU': the
+    device of each contiguous slice of the pair axis, in order (None
+    without a mesh)."""
+    if mesh is None:
+        return None
+    return wf.shard_devices(mesh)
 
 
 def _next_pow2(n: int) -> int:
@@ -301,7 +311,7 @@ class _Executable:
     """
 
     def __init__(self, spec: BackendSpec, pen, s_max: int, k_max: int,
-                 output: str = "score", heur=None,
+                 mesh=None, output: str = "score", heur=None,
                  states: Tuple[str, str] = ("M", "M"),
                  opts: Tuple[Tuple[str, object], ...] = ()):
         self.s_max = s_max
@@ -317,7 +327,8 @@ class _Executable:
         else:
             fn = spec.variant(output, pen.kind)
             self._dispatch = spec.dispatch
-        extra = {}
+        extra = ({"mesh": mesh} if spec.needs_mesh
+                 and output != "bidir_meet" else {})
         # band_cap="auto" resolves through the heuristic's cap for this
         # problem's width (exact alignment stays full width); each opt then
         # goes only to callables that take it, so the meet (no band_cap)
@@ -361,9 +372,13 @@ class AlignmentEngine:
     ``backend``, ``edit_frac``, ``s_max``/``k_max``, ``output``,
     ``heuristic``, ``chunk_pairs``, ``bucket_by_length``,
     ``min_bucket_len``, ``adaptive``, ``trace_variant``,
-    ``max_wave_cells``, ``trace_budget``, ``backend_opts``), plus
-    ``device``: where the waves run (``None`` = ``"cuda"``, which must be
-    present).  One device is one worker.  ``trace_variant="bidir"``
+    ``max_wave_cells``, ``trace_budget``, ``backend_opts``, ``mesh``: a
+    ``repro_torch.launch.mesh.Mesh`` that ``needs_mesh`` backends shard
+    over), plus ``device``: where the waves run (``None`` = the mesh's
+    first device, else ``"cuda"``, which must be present; a backend that
+    needs no mesh runs there too).  Each mesh entry is one worker, and
+    waves are padded to a multiple of the workers (one worker without a
+    mesh).  ``trace_variant="bidir"``
     produces CIGARs through the BiWFA recursion; ``trace_budget`` is its
     base case: a sub-problem whose ``s * (plen + tlen)`` fits it takes the
     packed backtrace (``None``: ``repro_torch.biwfa.DEFAULT_TRACE_BUDGET``).
@@ -379,7 +394,7 @@ class AlignmentEngine:
                  max_wave_cells: int = 1 << 24,
                  trace_budget: Optional[int] = None,
                  backend_opts: Optional[Dict[str, object]] = None,
-                 device=None):
+                 mesh=None, device=None):
         spec = get_backend(backend)
         self.backend_opts = dict(backend_opts or {})
         for kw in sorted(self.backend_opts):
@@ -399,7 +414,12 @@ class AlignmentEngine:
             raise ValueError(
                 f"CIGAR output needs a backend with a trace variant; "
                 f"{backend!r} is score-only")
-        self.device = resolve_device(device)
+        if spec.needs_mesh and mesh is None:
+            raise ValueError(f"backend {backend!r} needs a device mesh")
+        self.mesh = mesh
+        self.device = resolve_device(
+            mesh.devices[0] if device is None and mesh is not None
+            else device)
         self.pen = scoring.as_model(pen)
         spec.variant("score", self.pen.kind)   # raises if model unsupported
         self.heuristic = scoring.as_heuristic(heuristic)
@@ -415,7 +435,7 @@ class AlignmentEngine:
         # dispatch narrow waves instead of running out of memory
         self.max_wave_cells = int(max_wave_cells)
         self.trace_budget = trace_budget
-        self.n_workers = 1
+        self.n_workers = mesh.size if mesh is not None else 1
         self._cache: Dict[tuple, _Executable] = {}
 
     def resolve_output(self, output: Optional[str], pen=None) -> str:
@@ -561,8 +581,8 @@ class AlignmentEngine:
             obs_trace.instant("engine.retrace", args={
                 "backend": spec.name, "shape": list(pshape),
                 "s_max": s_max, "k_max": k_max, "output": output})
-        exe = _Executable(spec, pen, s_max, k_max, output, heur, states,
-                          opts)
+        exe = _Executable(spec, pen, s_max, k_max, self.mesh, output, heur,
+                          states, opts)
         self._cache[key] = exe
         return exe, False
 

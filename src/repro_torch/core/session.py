@@ -131,33 +131,42 @@ class Ticket:
 class _Transfer:
     """One wave's device results on their way to the host.
 
-    On a card: an event after the kernel, ``non_blocking`` copies of the
-    score (and trace words) into pinned host tensors, and an event after
-    the copies.  On the CPU the results already are host tensors.
+    A result on other devices than the engine's (a ``shardmap`` wave over
+    several cards) is first gathered onto the engine's device.  On a card:
+    an event after the kernel, ``non_blocking`` copies of the score (and
+    trace words) into pinned host tensors, and an event after the copies,
+    all on the engine device's current stream.  A backend that runs on
+    streams of its own orders that stream after them before it returns
+    (``wavefront.wfa_shards``), so the events cover every shard.  On the
+    CPU the results already are host tensors.
     """
 
     def __init__(self, res, device: torch.device):
         self.res = res
         # the score and every other tensor field: trace words, meet
         # breakpoints, a kernel's on-device step count
-        names = ("score",) + tuple(
-            f for f in res._fields[1:]
-            if isinstance(getattr(res, f), torch.Tensor))
+        fields = {}
+        for f in res._fields:
+            t = getattr(res, f)
+            if isinstance(t, torch.Tensor):
+                fields[f] = t.to(device)
+            elif f == "score":   # whatever it is, it fails at the gather
+                fields[f] = t
         self.kernel_done = self.copied = None
         if device.type == "cuda":
+            stream = torch.cuda.current_stream(device)
             self.kernel_done = torch.cuda.Event(enable_timing=True)
-            self.kernel_done.record()
+            self.kernel_done.record(stream)
             self.host = {}
-            for f in names:
-                src = getattr(res, f)
+            for f, src in fields.items():
                 dst = torch.empty(src.shape, dtype=src.dtype,
                                   pin_memory=True)
                 dst.copy_(src, non_blocking=True)
                 self.host[f] = dst
             self.copied = torch.cuda.Event(enable_timing=True)
-            self.copied.record()
+            self.copied.record(stream)
         else:
-            self.host = {f: getattr(self.res, f) for f in names}
+            self.host = fields
 
     def ready(self) -> bool:
         return self.copied is None or self.copied.query()
@@ -371,10 +380,11 @@ class AlignmentSession:
                                s_max, k_max, recovery)
 
     def _mark(self):
-        """A point on the device timeline (CUDA event) or the host clock."""
+        """A point on the device timeline (a CUDA event on the engine
+        device's current stream) or the host clock."""
         if self._cuda:
             ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
+            ev.record(torch.cuda.current_stream(self.engine.device))
             return ev
         return time.perf_counter()
 

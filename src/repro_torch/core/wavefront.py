@@ -56,10 +56,16 @@ Both ring solvers take ``band_cap``: the *compacting band* carries the
 fronts at a compact width ``Kc`` in a per-pair window that re-centres on the
 live diagonals each step (:func:`_scores_band`); the packed planes stay full
 width.
+
+:func:`wfa_scores_shardmap` and :func:`wfa_trace_shardmap` serve the
+``shardmap`` backend: the pair axis splits into one contiguous slice per
+device of a mesh (``repro_torch.launch.mesh``), and each slice runs the ring
+solver on its own device to its own termination, with no state shared.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -873,3 +879,106 @@ def wfa_bidir_meet(pattern, text, plen, tlen, starget, *, pen, s_max: int,
         block_pairs=max(B, 1))
     return BidirMeetResult(torch.where(met, starget, -1), s,
                            torch.where(met, jst, -1), ja, jb, jk, jh, jsf)
+
+
+# ---------------------------------------------------------------------------
+# Per-shard solving over a device mesh (the ``shardmap`` backend).
+
+
+def shard_devices(mesh) -> List[torch.device]:
+    """The device of each shard, in shard order: the pair axis splits over
+    every mesh axis, and the mesh lists its devices row-major, as
+    ``P(axis_names)`` lays them out."""
+    return list(mesh.devices)
+
+
+def wfa_shards(pattern, text, plen, tlen, *, pen, s_max: int, k_max: int,
+               mesh, heur=None, band_cap=None,
+               packed: bool = False) -> List[WFAResult]:
+    """Each shard's :class:`WFAResult`, in shard order, on its device.
+
+    Shard *i* takes rows ``[i*B/n, (i+1)*B/n)`` of the ``n`` shards of
+    :func:`shard_devices` and runs :func:`wfa_scores` (with ``packed``:
+    :func:`wfa_scores_packed`) on them: its own loop, its own early exit,
+    nothing shared (the paper's "no inter-DPU communication").  ``B`` must
+    split evenly, as under ``shard_map``.  On return, every card's current
+    stream is ordered after its shards' work.
+    """
+    devices = shard_devices(mesh)
+    n = len(devices)
+    B = int(pattern.shape[0])
+    if B % n:
+        raise ValueError(f"{B} pairs do not split evenly over {n} shards")
+    per = B // n
+    solve = wfa_scores_packed if packed else wfa_scores
+    kw = dict(pen=pen, s_max=s_max, k_max=k_max, heur=heur,
+              band_cap=band_cap)
+    # slices go to their devices from this thread, behind the caller's
+    # streams (a copy between cards orders both cards' current streams)
+    args = [[torch.as_tensor(a[i * per:(i + 1) * per]).to(
+        dev, non_blocking=True) for a in (pattern, text, plen, tlen)]
+        for i, dev in enumerate(devices)]
+    if n == 1:
+        return [solve(*args[0], device=devices[0], **kw)]
+    # The ring loop asks the host every step whether any pair is left, so
+    # shards on one thread would run one after another.  Each shard gets a
+    # host thread of its own and, on a card, a CUDA stream of its own:
+    # shards on several cards run side by side, and shards that share one
+    # card interleave their steps on it.
+    streams = [torch.cuda.Stream(dev) if dev.type == "cuda" else None
+               for dev in devices]
+    for st, dev, a in zip(streams, devices, args):
+        if st is not None:
+            st.wait_stream(torch.cuda.current_stream(dev))
+            for t in a:
+                t.record_stream(st)
+
+    def run(i):
+        if streams[i] is None:
+            return solve(*args[i], device=devices[i], **kw)
+        with torch.cuda.stream(streams[i]):
+            return solve(*args[i], device=devices[i], **kw)
+
+    with ThreadPoolExecutor(max_workers=n) as pool:
+        futures = [pool.submit(run, i) for i in range(n)]
+        out = [f.result() for f in futures]
+    for st, dev, res in zip(streams, devices, out):
+        if st is not None:
+            caller = torch.cuda.current_stream(dev)
+            caller.wait_stream(st)
+            for t in res:
+                if isinstance(t, torch.Tensor):
+                    t.record_stream(caller)
+    return out
+
+
+def wfa_scores_shardmap(pattern, text, plen, tlen, *, pen, s_max: int,
+                        k_max: int, mesh, heur=None,
+                        band_cap=None) -> torch.Tensor:
+    """PIM-faithful distributed WFA: each shard of the pair axis runs
+    :func:`wfa_scores` to its own termination (:func:`wfa_shards`); the
+    ``[B]`` scores come back concatenated on the first shard's device."""
+    res = wfa_shards(pattern, text, plen, tlen, pen=pen, s_max=s_max,
+                     k_max=k_max, mesh=mesh,
+                     heur=heur, band_cap=band_cap)
+    first = res[0].score.device
+    return torch.cat([r.score.to(first) for r in res])
+
+
+def wfa_trace_shardmap(pattern, text, plen, tlen, *, pen, s_max: int,
+                       k_max: int, mesh, heur=None,
+                       band_cap=None):
+    """Per-shard packed-backtrace WFA: each shard runs
+    :func:`wfa_scores_packed` to its own termination, so a settled pair
+    keeps getting codes until its own shard exits.  Returns ``(score,
+    m_bt, i_bt, d_bt)`` concatenated on the first shard's device, the words
+    in the ``[n_words, B, k_pad]`` layout; ``i_bt = d_bt = None`` for
+    linear models."""
+    res = wfa_shards(pattern, text, plen, tlen, pen=pen, s_max=s_max,
+                     k_max=k_max, mesh=mesh,
+                     heur=heur, band_cap=band_cap, packed=True)
+    first = res[0].score.device
+    cat = lambda f, dim: (None if getattr(res[0], f) is None else torch.cat(
+        [getattr(r, f).to(first) for r in res], dim=dim))
+    return (cat("score", 0), cat("m_bt", 1), cat("i_bt", 1),
+            cat("d_bt", 1))

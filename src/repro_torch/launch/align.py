@@ -12,13 +12,14 @@ back to back.  Throughput is reported both ways the paper does: *Total*
         --chunk-pairs 65536 --verify 512            # on the card
     python -m repro_torch.launch.align --device cpu --pairs 64 --verify 8
 
-``--backend ref|ring|kernel`` selects a registered backend
-(``repro_torch.core.backends``); ``--output score|cigar|sam`` the result
-pathway (``cigar``: full alignments, with identity stats; ``sam``: the
-same plus one SAM record per pair, written to ``--sam-out``, default
-stdout, where the mutated mate (*text*) is the read and the sampled
-reference read (*pattern*) its reference); ``--trace packed|bidir`` how
-CIGARs are made: the packed backtrace, or the BiWFA
+``--backend ref|ring|kernel|shardmap`` selects a registered backend
+(``repro_torch.core.backends``; ``shardmap`` splits each wave over every
+visible card, or runs one shard on ``--device``); ``--output
+score|cigar|sam`` the result pathway (``cigar``: full alignments, with
+identity stats; ``sam``: the same plus one SAM record per pair, written to
+``--sam-out``, default stdout, where the mutated mate (*text*) is the read
+and the sampled reference read (*pattern*) its reference); ``--trace
+packed|bidir`` how CIGARs are made: the packed backtrace, or the BiWFA
 meet-in-the-middle recursion (``repro_torch.biwfa``: exact CIGARs in O(s)
 trace memory, for noisy long reads)::
 
@@ -44,7 +45,7 @@ from repro_torch import obs
 from repro_torch.configs import wfa_paper
 from repro_torch.core import cigar as cigar_mod
 from repro_torch.core import scoring
-from repro_torch.core.backends import available_backends
+from repro_torch.core.backends import available_backends, get_backend
 from repro_torch.core.engine import AlignmentEngine
 from repro_torch.core.gotoh import gotoh_score_vec, score_cigar
 from repro_torch.core.session import run_streamed
@@ -186,12 +187,17 @@ def main(argv=None, summary: Optional[dict] = None) -> int:
     log(f"[align] scoring: {pen} heuristic={heur}"
         + (" (approximate scores)" if not heur.exact else ""))
 
+    mesh = None
+    if get_backend(args.backend).needs_mesh:
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(device=args.device)
     engine = AlignmentEngine(pen, backend=args.backend,
                              edit_frac=args.edit_frac, heuristic=heur,
                              chunk_pairs=args.chunk_pairs,
                              bucket_by_length=not args.no_bucket,
                              adaptive=not args.no_adaptive,
-                             trace_variant=args.trace, device=args.device)
+                             trace_variant=args.trace, mesh=mesh,
+                             device=args.device)
     submit_pairs = args.submit_pairs or args.chunk_pairs
     # warmup with the identical batch so the measured run is steady-state
     # (every specialisation and the kernel's library loaded); a submit-sized
@@ -233,9 +239,11 @@ def main(argv=None, summary: Optional[dict] = None) -> int:
         if mode == "stream":
             extra = (f" submits={st.n_submits} waves={st.n_waves} "
                      f"inflight<={st.max_inflight} (peak {st.peak_inflight})")
+            summary["stream_waves"] = st.n_waves
         trace = f" trace={args.trace}" if out_mode == "cigar" else ""
         log(f"[align] {mode}: backend={args.backend} output={out_mode}"
-            f"{trace} device={engine.device} buckets={st.n_buckets} "
+            f"{trace} device={engine.device} workers={pim.n_workers} "
+            f"buckets={st.n_buckets} "
             f"cache={st.cache_hits}h/{st.cache_misses}m "
             f"first_uses={st.n_traces}{extra}")
         log(f"[align] {mode}: scatter {pim.t_scatter:.4f}s  "

@@ -6,6 +6,10 @@
 * :mod:`repro_torch.obs.metrics` — counters, gauges and log-bucketed
   latency histograms with Prometheus text exposition.
 * :mod:`repro_torch.obs.profile` — the ``torch.profiler`` bridge.
+* :mod:`repro_torch.obs.analyze` — the consumption side: typed trace
+  loader, per-wave phase accounting (the paper's transfer/kernel/retrieve
+  split), critical paths from flow arrows, pipeline bubbles and
+  trace/snapshot diffs (stdlib only; ``launch/obs_report.py`` is its CLI).
 * :mod:`repro_torch.obs.record` — the always-on flight recorder.
 
 Quickstart::
@@ -20,9 +24,10 @@ from __future__ import annotations
 import contextlib
 from typing import Iterator, Optional
 
-from repro_torch.obs import metrics, profile, record, trace
+from repro_torch.obs import analyze, metrics, profile, record, trace
 
-__all__ = ["capture_trace", "metrics", "profile", "record", "trace"]
+__all__ = ["analyze", "capture_trace", "metrics", "profile", "record",
+           "trace"]
 
 
 @contextlib.contextmanager

@@ -82,11 +82,13 @@ def test_streamed_session_matches_sync():
 
 
 def test_registry_and_backend_opts():
-    assert t_backends.available_backends() == ["kernel", "ref", "ring"]
-    for name in ("kernel", "ref", "ring"):
+    assert t_backends.available_backends() == ["kernel", "ref", "ring",
+                                               "shardmap"]
+    for name in ("kernel", "ref", "ring", "shardmap"):
         spec = t_backends.get_backend(name)
         assert spec.supports_cigar and spec.accepts_heuristic("cigar")
         assert spec.models == ("affine", "linear")
+        assert spec.needs_mesh == (name == "shardmap")
     assert t_backends.get_backend("ring").accepts_states()
     assert t_backends.get_backend("ref").accepts_states()
     # the CUDA trace kernel takes no boundary states (stateful BiWFA leaves
@@ -101,6 +103,8 @@ def test_registry_and_backend_opts():
         AlignmentEngine(backend="kernel", device="cpu",
                         backend_opts={"nope": 1})
     with pytest.raises(KeyError, match="unknown alignment backend"):
+        AlignmentEngine(backend="nope", device="cpu")
+    with pytest.raises(ValueError, match="needs a device mesh"):
         AlignmentEngine(backend="shardmap", device="cpu")
 
 
