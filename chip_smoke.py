@@ -143,7 +143,36 @@ Phases (each raises on failure, and the script then exits non-zero):
    4,096 pairs must warn ``DeprecationWarning``, launch the score kernel
    and give ``AlignmentEngine.align``'s scores, and ``python -m
    repro_torch.examples.quickstart`` must exit 0 on the card;
-16. report — a ``kernels`` JSON line, the card's name and power limit, and
+16. training — qwen3-0.6b at published widths on the card, random weights
+   from a seed, on the token stream (``data/tokens.py``): (a) one block at
+   B 2, S 1,024, bf16: the q, k, v and wq, wk, wv gradients through
+   ``layers.FlashAttention`` (kernel forward, plain recompute backward)
+   must equal those through ``ref_attention_gqa`` within GRAD_TOL, the same
+   with the kernel's output detached must fail (this holds the autograd
+   wiring and the backward, not the kernel's arithmetic), and two kernel
+   launches on the same inputs must agree bit for bit; (b) ``repro_torch.
+   launch.train.main`` at 8 x 1,024 tokens for 12 steps: a finite loss that
+   falls, the flash kernel on the wgmma body for every layer's forward
+   (twice a step under the model's ``"dots"`` remat, which recomputes
+   attention); every flash launch of the first step is held against the
+   plain version on its own inputs (q [8, 1,024, 16, 128], k / v [8, 1,024,
+   8, 128], bf16, causal) by the flash check, and the last of them, run
+   again with the wgmma body's key tile TRAIN_DROP_TILE dropped, must fail
+   it; step time, tokens/s, peak memory and the model-FLOP share are
+   printed; (d) on the device's side, at the training shape, the flash
+   forward, the plain forward and the attention backward each timed alone
+   beside ``scaled_dot_product_attention`` forward + backward, and two
+   steps under ``torch.profiler``: the device's busy share, its time by
+   kind of kernel (the flash kernel must be among them) and a step's split
+   into FlashAttention's forward, its backward and the rest; (c) the
+   restart drill: 8 steps straight against a failure at step 5 and a
+   resume from the step-3 checkpoint, parameters and moments bit for bit
+   (at full depth where the temporary disk holds three checkpoints of
+   7.2 GB, else at 4 layers, and it says which); (e) the same 12 steps with
+   attention on the plain path as the yardstick (tokens/s, and the step-0
+   loss within TRAIN_LOSS0_TOL of the kernel run's, a check of the run's
+   set-up rather than of the kernel);
+17. report — a ``kernels`` JSON line, the card's name and power limit, and
    the final ``{"ok": true, ...}`` line.
 
 It needs one card and exits non-zero without one.  It imports nothing of
@@ -233,6 +262,41 @@ LM_E2E_ROWS = 2
 # smoke model, where a wrong GQA head mapping fails both bounds.
 LM_E2E_MAX_TOL = 0.25
 LM_E2E_MEAN_TOL = 0.03
+# training (phase 16): the same model at published widths on the token
+# stream, 8 x 1,024 = 8,192 tokens a step
+TRAIN_BATCH = 8
+TRAIN_SEQ = 1024
+TRAIN_STEPS = 12
+TRAIN_TIMED_FROM = 2          # step times: the median of the steps after 2
+DRILL_STEPS, DRILL_EVERY, DRILL_FAIL = 8, 4, 5
+DRILL_SMALL_LAYERS = 4        # the drill's depth where the disk holds less
+GRAD_BATCH = 2                # one block's gradients, B 2 x S 1,024
+# One block's gradients (q, k, v and wq, wk, wv; loss mean(y**2) of the
+# block's output) through layers.FlashAttention against autograd through
+# the plain attention (ref_attention_gqa), bf16.  Both backwards run plain
+# ops (FlashAttention's is the _sdpa recompute), so the two differ by the
+# forwards' rounding and by bf16 against fp32 scores in the two plain
+# paths: 0.010 of the largest magnitude (max |err| and the L2 ratio alike)
+# on the CPU at these widths, S 256.  A detached kernel output gives zero
+# attention gradients, 1.0 of it.
+GRAD_TOL = 2 ** -4
+# the training step's first loss, kernel against plain attention: the same
+# parameters and tokens, so only bf16 rounding inside attention differs,
+# averaged over 8,192 tokens.  A random-init loss sits near ln(151,936) =
+# 11.93 whatever attention returns, so this holds the two runs' set-up, not
+# the kernel: the kernel's forward is held by the flash check on the
+# launcher's own launches (phase 16b), its gradient wiring by phase 16a.
+TRAIN_LOSS0_TOL = 1e-2
+# Phase 16b holds the training launches to the elementwise bf16 limit
+# alone (FLASH_BF16_ULPS ulps of |want| + FLASH_BF16_FLOOR x the row's mean
+# |want|), not to the absolute FLASH_TOL: that 2e-2 is sized to outputs of
+# about 0.4 (random inputs of scale 0.5), while the model's attention
+# outputs reach |o| ~ 4.2, where one bf16 ulp is 0.031 and kernel and plain,
+# each rounding once to bf16, may differ by it (on the H100: max |err|
+# 0.03125, 1 ulp at want -4.219, 0.304 of the elementwise limit).
+# the planted fault of phase 16b: the wgmma body's 128-key tile 4 (keys
+# 512-639) left out of every row, which moves rows 512-1,023 of S 1,024
+TRAIN_DROP_TILE = 4
 
 
 def log(*a):
@@ -1492,11 +1556,11 @@ def bf16_ulp(x):
     return torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8)
 
 
-def flash_check(got, want):
+def flash_check(got, want, absolute=True):
     """-> (max |got - want|, the largest share of a limit): max |err|
-    against FLASH_TOL, and in bf16 also each |err| against FLASH_BF16_ULPS
-    ulps of |want| + FLASH_BF16_FLOOR x its row's mean |want|.  Passes when
-    the share <= 1."""
+    against FLASH_TOL (unless ``absolute`` is false), and in bf16 also each
+    |err| against FLASH_BF16_ULPS ulps of |want| + FLASH_BF16_FLOOR x its
+    row's mean |want|.  Passes when the share <= 1."""
     import torch
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{tuple(got.shape)} {got.dtype} != "
@@ -1505,7 +1569,7 @@ def flash_check(got, want):
     w = want.float()
     diff = (got.float() - w).abs()
     err = float(diff.max())
-    share = err / FLASH_TOL[dname]
+    share = err / FLASH_TOL[dname] if absolute else 0.0
     if want.dtype == torch.bfloat16:
         w = w.abs()
         limit = (FLASH_BF16_ULPS * bf16_ulp(w)
@@ -1870,6 +1934,479 @@ def phase_serve_long(FK, dev, card):
     if not torch.isfinite(dec).all():
         raise AssertionError("non-finite logits")
     return dict(launches=launches, max_abs_err=err, share=share)
+
+
+def block_attention_grads(cfg, blk, h, attn):
+    """Gradients of one block's loss ``mean(y**2)`` (y the block's output)
+    with respect to its q, k, v and to wq, wk, wv, the block's attention
+    computed by ``attn(q, k, v)``; a gradient that never arrives is 0."""
+    import torch
+    from repro_torch.models import layers as L
+    B, S, _ = h.shape
+    pos = torch.arange(S, device=h.device)[None].expand(B, S)
+    p = {k: v.detach().requires_grad_() for k, v in blk["attn"].items()}
+    a = L.rmsnorm(blk["ln1"], h, cfg.rms_eps)
+    qkv = L._qkv(p, a, cfg, L._rope(cfg, pos))
+    for t in qkv:
+        t.retain_grad()
+    h2 = h + L._out(attn(*qkv), p["wo"], cfg.cdtype())
+    m = L.rmsnorm(blk["ln2"], h2, cfg.rms_eps)
+    y = h2 + L.mlp_forward(blk["mlp"], m, cfg)
+    (y.float() ** 2).mean().backward()
+    out = {}
+    for name, t in zip(("dq", "dk", "dv", "wq", "wk", "wv"),
+                       (*qkv, p["wq"], p["wk"], p["wv"])):
+        g = t.grad
+        out[name] = (torch.zeros_like(t) if g is None else g).float()
+    return out
+
+
+def grad_shares(got, want) -> dict:
+    """Per gradient: the larger of max |got - want| / max |want| and
+    ||got - want|| / ||want||, over GRAD_TOL (<= 1 passes)."""
+    shares = {}
+    for name, w in want.items():
+        d = got[name] - w
+        shares[name] = max(float(d.abs().max() / w.abs().max()),
+                           float(d.norm() / w.norm())) / GRAD_TOL
+    return shares
+
+
+def phase_train_grads(FK, fops, dev, card):
+    """Phase 16a: one qwen3-0.6b block at published widths (B 2, S 1,024,
+    bf16): q, k, v and wq, wk, wv gradients through layers.FlashAttention
+    (the wgmma body on the forward, one launch) against autograd through
+    ref_attention_gqa, within GRAD_TOL; the same with the kernel's output
+    detached (the planted fault) must fail with zero gradients.  Two
+    launches of the kernel on the same inputs must agree bit for bit (the
+    restart drill needs a deterministic forward)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import ref_attention_gqa
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TFM
+
+    cfg = get_config(LM_ARCH).replace(n_layers=1)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    blk = TFM.init_params(cfg, gen, dev)["layers"][0]
+    h = torch.randn((GRAD_BATCH, TRAIN_SEQ, cfg.d_model), generator=gen,
+                    device=dev).to(cfg.cdtype())
+    kernel = lambda q, k, v: L.FlashAttention.apply(q, k, v, cfg, True)
+    FK.reset_launches()
+    got = block_attention_grads(cfg, blk, h, kernel)
+    launches = dict(FK.PATH_LAUNCHES)
+    if launches["wgmma"] != 1 or FK.LAUNCHES["flash_attention"] != 1:
+        raise AssertionError(f"the block's forward and backward launched "
+                             f"the flash bodies {launches}, not wgmma once")
+    want = block_attention_grads(
+        cfg, blk, h, lambda q, k, v: ref_attention_gqa(q, k, v, causal=True))
+    shares = grad_shares(got, want)
+    planted = grad_shares(block_attention_grads(
+        cfg, blk, h, lambda q, k, v: kernel(q, k, v).detach()), want)
+    log(f"[train] one block (B {GRAD_BATCH}, S {TRAIN_SEQ}, bf16) through "
+        f"FlashAttention vs plain attention, share of the {GRAD_TOL} "
+        f"limit: " + ", ".join(f"{n} {v:.3f}" for n, v in shares.items())
+        + "; kernel output detached: " + ", ".join(
+            f"{n} {v:.3f}" for n, v in planted.items()))
+    if not all(v <= 1 for v in shares.values()):
+        raise AssertionError(f"gradients through the kernel != plain: "
+                             f"{shares}")
+    if not all(v > 1 for v in planted.values()):
+        raise AssertionError(f"the check passed a detached kernel output: "
+                             f"{planted}")
+
+    qkv = L._qkv(blk["attn"], L.rmsnorm(blk["ln1"], h, cfg.rms_eps), cfg,
+                 L._rope(cfg, torch.arange(TRAIN_SEQ, device=dev)[None]
+                         .expand(GRAD_BATCH, TRAIN_SEQ)))
+    with torch.no_grad():
+        a, b = (fops.flash_attention(*qkv, device=dev) for _ in range(2))
+    if not torch.equal(a, b):
+        raise AssertionError("two flash launches on the same inputs differ")
+    log(f"[train] two flash launches on the same q, k, v "
+        f"{tuple(qkv[0].shape)}: bit-identical; on {card}")
+    return dict(share=max(shares.values()),
+                planted_share=min(planted.values()))
+
+
+TRAIN_LINE = re.compile(r"\[train\] step\s+(\d+) loss (\S+) lr \S+ gnorm "
+                        r"\S+ ([\d.]+) ms")
+
+
+def run_train_main(argv):
+    """``launch.train.main(argv)`` -> (exit code, [(step, loss, ms)]); its
+    output is echoed after the run."""
+    import contextlib
+    import io
+    from repro_torch.launch import train as T
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = T.main(argv)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  {line}")
+    return rc, [(int(a), float(b), float(c))
+                for a, b, c in TRAIN_LINE.findall(text)]
+
+
+def train_flops(cfg, tokens: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6 x parameters x tokens, plus the
+    causal attention's products (4 dh FLOPs per (head, query, key) pair the
+    mask keeps, forward and twice in the backward)."""
+    pairs = tokens // seq * seq * (seq + 1) // 2
+    attn = 3 * 4 * cfg.d_head * cfg.n_heads * pairs * cfg.n_layers
+    return 6.0 * cfg.param_count() * tokens + attn
+
+
+def phase_train(FK, dev, card):
+    """Phase 16b, 16e: ``launch.train.main`` on qwen3-0.6b at published
+    widths, 8 x 1,024 tokens a step, 12 steps.  The loss must be finite and
+    fall from step 0 to the last step; every forward of every layer must
+    launch the flash kernel on the wgmma body (twice a step where the remat
+    policy recomputes the block).  Each launch of the first step is copied
+    to the host as it returns (steps 0-1 are left out of the step time) and
+    held afterwards against the plain version on its own inputs by
+    :func:`flash_check`; the last, run again with the wgmma body's key tile
+    TRAIN_DROP_TILE dropped, must fail that check.  Printed: step time
+    (median after the first two), tokens/s, peak memory and the model-FLOP
+    share; then the same run with attention on the plain path (no kernel)
+    as the yardstick."""
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    cfg = get_config(LM_ARCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    forwards = 1 if cfg.remat_policy == "everything" else 2
+    argv = ["--arch", LM_ARCH, "--global-batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--log-every", "1"]
+    flops = train_flops(cfg, tokens, TRAIN_SEQ)
+
+    def summary(rows):
+        ms = statistics.median(r[2] for r in rows[TRAIN_TIMED_FROM:])
+        return dict(step_ms=ms, tokens_per_s=tokens / (ms / 1e3),
+                    mfu=flops / (ms / 1e3) / BF16_FLOPS_PER_S,
+                    losses=[r[1] for r in rows])
+
+    launch, captured = FK.flash_attention_cuda, []
+    per_step = cfg.n_layers * forwards
+
+    def capturing(q, k, v, **kw):
+        o = launch(q, k, v, **kw)
+        if len(captured) < per_step:
+            captured.append((*(t.cpu() for t in (q, k, v, o)), kw))
+        return o
+
+    FK.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    FK.flash_attention_cuda = capturing
+    t0 = time.perf_counter()
+    try:
+        rc, rows = run_train_main(argv)
+    finally:
+        FK.flash_attention_cuda = launch
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(FK.PATH_LAUNCHES)
+    want = per_step * TRAIN_STEPS
+    if rc != 0 or [r[0] for r in rows] != list(range(TRAIN_STEPS)):
+        raise AssertionError(f"train.main: rc {rc}, steps logged "
+                             f"{[r[0] for r in rows]}")
+    if launches["wgmma"] != want or FK.LAUNCHES["flash_attention"] != want:
+        raise AssertionError(
+            f"{TRAIN_STEPS} steps launched the flash bodies {launches}, not "
+            f"wgmma {want} times ({cfg.n_layers} layers x {forwards} "
+            f"forwards a step)")
+    run = summary(rows)
+    losses = run["losses"]
+    if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    remat = {1: "no block recompute", 2: "the block recomputed in the "
+             "backward"}[forwards]
+    log(f"[train] {LM_ARCH} (remat_policy {cfg.remat_policy!r}: {remat}), "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, {TRAIN_STEPS} steps in "
+        f"{wall:.1f}s: loss {losses[0]:.4f} -> {losses[-1]:.4f}; flash "
+        f"launches {launches['wgmma']} on wgmma ({cfg.n_layers} x "
+        f"{forwards} a step); step {run['step_ms']:.1f} ms (median of steps "
+        f"{TRAIN_TIMED_FROM}-{TRAIN_STEPS - 1}), {run['tokens_per_s']:,.0f} "
+        f"tokens/s, model-FLOP share {100 * run['mfu']:.1f}% "
+        f"({flops / 1e12:.2f} TFLOP a step over {BF16_FLOPS_PER_S / 1e12:.0f}"
+        f" TFLOP/s), peak memory {peak / 2**30:.2f} GiB; card: {card}")
+
+    # the first step's flash launches against the plain version
+    err = share = 0.0
+    where = ""
+    if len(captured) != per_step:
+        raise AssertionError(f"captured {len(captured)} launches of step 0, "
+                             f"not {per_step}")
+    for i, (q, k, v, o, kw) in enumerate(captured):
+        q, k, v, o = (t.to(dev) for t in (q, k, v, o))
+        want_o = FK.flash_attention_plain(q, k, v, **kw)
+        e, sh = flash_check(o, want_o, absolute=False)
+        if not sh <= 1:
+            raise AssertionError(f"training flash launch {i} != plain: max "
+                                 f"|err| {e}, {sh:.3g} of the limit; "
+                                 f"{flash_worst(o, want_o)}")
+        if sh > share:
+            where = f"{flash_worst(o, want_o)} in launch {i}"
+        err, share = max(err, e), max(share, sh)
+    shape = tuple(q.shape)
+    fault = flash_check(FK.flash_attention_cuda(
+        q, k, v, **kw, drop_key_tile=TRAIN_DROP_TILE), want_o, absolute=False)
+    del captured, q, k, v, o, want_o
+    log(f"[train] the {per_step} flash launches of step 0 (q {shape}, "
+        f"bf16, causal, on the wgmma body) = plain: max |err| {err:.3g} "
+        f"(held to the elementwise limit alone), worst share "
+        f"{share:.3f} of the limit, {where}; the last launch with key tile "
+        f"{TRAIN_DROP_TILE} dropped: {fault[1]:.2f} of the limit (max |err| "
+        f"{fault[0]:.3g})")
+    if not fault[1] > 1:
+        raise AssertionError(f"the flash check passed a dropped key tile at "
+                             f"the training shape: {fault}")
+
+    # the yardstick: the same steps with attention on the plain path
+    FK.reset_launches()
+    L.FlashAttention.apply = staticmethod(
+        lambda q, k, v, c, causal: L.sdpa_chunked(q, k, v, c, causal=causal))
+    try:
+        rc, rows = run_train_main(argv)
+    finally:
+        del L.FlashAttention.apply
+    if rc != 0 or FK.LAUNCHES["flash_attention"] != 0:
+        raise AssertionError(f"the plain-attention run: rc {rc}, flash "
+                             f"launches {FK.LAUNCHES}")
+    plain = summary(rows)
+    dloss = [abs(a - b) for a, b in zip(losses, plain["losses"])]
+    log(f"[train] yardstick, attention on the plain path (_sdpa, autograd "
+        f"end to end): step {plain['step_ms']:.1f} ms, "
+        f"{plain['tokens_per_s']:,.0f} tokens/s, model-FLOP share "
+        f"{100 * plain['mfu']:.1f}%; kernel run / plain "
+        f"{run['tokens_per_s'] / plain['tokens_per_s']:.3f}x; |loss "
+        f"difference| per step " + ", ".join(f"{d:.4f}" for d in dloss)
+        + f"; card: {card}")
+    if not dloss[0] <= TRAIN_LOSS0_TOL:
+        raise AssertionError(f"step 0 loss, kernel {losses[0]} against "
+                             f"plain {plain['losses'][0]}")
+    return dict(launches=launches["wgmma"], forwards_per_step=forwards,
+                peak_gib=peak / 2**30, flops_per_step=flops, **{
+                    k: run[k] for k in ("step_ms", "tokens_per_s", "mfu")},
+                losses=losses, max_abs_err=err, share=share,
+                dropped_tile_share=fault[1],
+                plain={k: plain[k] for k in ("step_ms", "tokens_per_s",
+                                             "mfu")}, loss_diff=dloss)
+
+
+def phase_train_device(FK, fops, dev, card):
+    """Phase 16d, where a step's time goes: at the training shape (B 8,
+    S 1,024, 16 query heads over 8 KV heads, dh 128, bf16) the flash
+    forward launch, the plain forward and the FlashAttention backward (the
+    _sdpa recompute and its gradient) each timed alone by CUDA events,
+    beside one PyTorch call for forward + backward
+    (``scaled_dot_product_attention``, timed only); two train steps under
+    ``torch.profiler``: the kernels' device time against the steps' wall
+    clock (the device's busy share), the device time by kind of kernel, the
+    host's Python dispatch calls, and a step's device time split into the
+    ranges the profiler opens for ``FlashAttention`` (its forward: padding
+    and the kernel, the backward's block recompute included), for
+    autograd's ``FlashAttentionBackward`` (the plain recompute and its
+    gradient) and the rest."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStreamSpec, batch_for_step
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TFM
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = get_config(LM_ARCH)
+    B, S, H, KV, dh = (TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.d_head)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rand = lambda *s: (torch.randn(s, generator=gen, device=dev) * 0.5) \
+        .to(cfg.cdtype())
+    q, k, v, do = rand(B, S, H, dh), rand(B, S, KV, dh), rand(B, S, KV, dh), \
+        rand(B, S, H, dh)
+    leaf = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def backward():
+        with torch.enable_grad():
+            o = L.sdpa_chunked(*leaf, cfg)
+            torch.autograd.grad(o, leaf, do)
+
+    def library():
+        t = [x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v)]
+        with torch.enable_grad():
+            o = F.scaled_dot_product_attention(*t, is_causal=True,
+                                               enable_gqa=True)
+            torch.autograd.grad(o, t, do.transpose(1, 2))
+
+    with torch.no_grad():
+        alone = dict(
+            flash_forward_ms=cuda_ms(
+                lambda: fops.flash_attention(q, k, v, device=dev), 20),
+            plain_forward_ms=cuda_ms(lambda: L.sdpa_chunked(q, k, v, cfg),
+                                     10))
+    alone["backward_ms"] = cuda_ms(backward, 10)
+    alone["library_fwd_bwd_ms"] = cuda_ms(library, 10)
+    del q, k, v, do, leaf
+
+    spec = TokenStreamSpec(vocab_size=cfg.vocab_size, seq_len=S,
+                           global_batch=B, seed=0)
+    state, _ = TFM.init_train_state(cfg, 0, dev)
+    step = TFM.make_train_step(cfg, AdamWConfig(total_steps=4,
+                                                warmup_steps=1), 1)
+    for i in range(2):
+        state, m = step(state, batch_for_step(spec, i))
+        float(m["loss"])
+    batches = [batch_for_step(spec, i) for i in (2, 3)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            state, m = step(state, b)
+            float(m["loss"])
+        wall = (time.perf_counter() - t0) / 2 * 1e3
+    del state
+    kinds, host, ranges = {}, {}, {}
+    for e in prof.key_averages():
+        if e.key in ("PythonDispatchMode", "cudaLaunchKernel"):
+            host[e.key] = dict(calls=e.count // 2,
+                               cpu_ms=e.cpu_time_total / 2e3)
+        if e.key in ("FlashAttention", "autograd::engine::evaluate_function: "
+                     "FlashAttentionBackward"):
+            ranges[e.key.split(" ")[-1]] = dict(
+                calls=e.count // 2, device_ms=e.device_time_total / 2e3)
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.key.lower()
+        kind = ("flash" if "flash" in name else
+                "matmul" if any(w in name for w in ("gemm", "nvjet", "cutlass",
+                                                    "sm90_xmma")) else
+                "softmax" if "softmax" in name else
+                "reduce" if "reduce" in name else
+                "copy" if "copy" in name else "elementwise" if any(
+                    w in name for w in ("elementwise", "functor")) else
+                "other")
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 2e3
+    busy = sum(kinds.values())
+    if kinds.get("flash", 0) <= 0:
+        raise AssertionError(f"no flash kernel in the profiled steps: {kinds}")
+    fwd, bwd = (ranges.get(n, dict(calls=0, device_ms=0.0))
+                for n in ("FlashAttention", "FlashAttentionBackward"))
+    if not (fwd["device_ms"] > 0 and bwd["device_ms"] > 0):
+        raise AssertionError(f"the profiler gave FlashAttention's ranges no "
+                             f"device time: {ranges}")
+    split = dict(step_wall_ms=wall, device_busy_ms=busy,
+                 flash_forward_ms=fwd["device_ms"],
+                 flash_kernel_ms=kinds["flash"], forwards=fwd["calls"],
+                 attention_backward_ms=bwd["device_ms"],
+                 backwards=bwd["calls"],
+                 rest_ms=busy - fwd["device_ms"] - bwd["device_ms"],
+                 idle_ms=wall - busy)
+    alone["bound_ms"], alone["bound_by"] = attention_bound(B, S, S, H, KV,
+                                                           dh, True)
+    log(f"[train] alone at B {B}, S {S}, H {H}, KV {KV}, dh {dh}, bf16 (CUDA "
+        f"events): flash forward {alone['flash_forward_ms']:.4f} ms (bound "
+        f"{alone['bound_ms']:.4f} ms, {alone['bound_by']}), plain "
+        f"forward {alone['plain_forward_ms']:.4f} ms, attention backward "
+        f"(plain recompute + gradient) {alone['backward_ms']:.4f} ms, "
+        f"scaled_dot_product_attention forward + backward (timed only) "
+        f"{alone['library_fwd_bwd_ms']:.4f} ms; card: {card}")
+    log(f"[train] two profiled steps: wall {wall:.1f} ms a step, kernels "
+        f"{busy:.1f} ms of it ({100 * busy / wall:.1f}% busy, "
+        f"{100 - 100 * busy / wall:.1f}% idle); by kind: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in sorted(kinds.items(),
+                                              key=lambda kv: -kv[1]))
+        + " ms; on the host a step: " + ", ".join(
+            f"{k} {v['calls']:,} calls, {v['cpu_ms']:.1f} ms"
+            for k, v in host.items()) + f"; card: {card}")
+    log(f"[train] a step's device time by profiler range: {busy:.2f} ms = "
+        f"FlashAttention forward {split['flash_forward_ms']:.2f} ms "
+        f"({split['forwards']} calls; the flash kernel "
+        f"{split['flash_kernel_ms']:.2f} ms of it) + FlashAttentionBackward "
+        f"{split['attention_backward_ms']:.2f} ms ({split['backwards']} "
+        f"calls, the plain recompute and its gradient) + the rest "
+        f"{split['rest_ms']:.2f} ms; idle {split['idle_ms']:.2f} ms of the "
+        f"{wall:.2f} ms wall; card: {card}")
+    return dict(alone=alone, kinds=kinds, host=host, split=split,
+                busy_share=busy / wall)
+
+
+def phase_train_drill(card):
+    """Phase 16c: the restart drill on the card.  A straight run of 8 steps
+    against one that checkpoints every 4 steps and fails at step 5, then
+    resumes from step 3: final parameters, both moments and the step bit
+    for bit.  At full width one checkpoint is 12 B a parameter (fp32
+    parameters and two moments); the resumed run's final save rewrites
+    step 7 beside step 3, so the temporary disk must hold three.  Where it
+    holds less, the drill runs at DRILL_SMALL_LAYERS layers of the same
+    widths and says so."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.fault import FailureInjector
+    from repro_torch.launch import train as T
+    from repro_torch.tree import key_paths
+
+    cfg = get_config(LM_ARCH)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        need = 3 * 12 * cfg.param_count()
+        why = (f"full depth: {free / 2**30:.1f} GiB free on the temporary "
+               f"disk, 3 checkpoints need {need / 2**30:.1f} GiB")
+        if free < need:
+            cfg = cfg.replace(n_layers=DRILL_SMALL_LAYERS)
+            why = (f"{DRILL_SMALL_LAYERS} layers of the same widths: only "
+                   f"{free / 2**30:.1f} GiB free on the temporary disk, 3 "
+                   f"full-depth checkpoints need {need / 2**30:.1f} GiB")
+        kw = dict(steps=DRILL_STEPS, global_batch=TRAIN_BATCH,
+                  seq_len=TRAIN_SEQ, log_every=100)
+        times = {}
+        t0 = time.perf_counter()
+        ref, _ = T.train(cfg, **kw)
+        times["straight"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        try:
+            T.train(cfg, ckpt_dir=tmp, ckpt_every=DRILL_EVERY,
+                    fail_at_step=DRILL_FAIL, **kw)
+            raise AssertionError("no simulated failure")
+        except FailureInjector.SimulatedFailure:
+            pass
+        times["failed"] = time.perf_counter() - t0
+        if ckpt.latest_step(tmp) != DRILL_EVERY - 1:
+            raise AssertionError(f"checkpoints after the failure: "
+                                 f"{ckpt.all_steps(tmp)}")
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(tmp) for f in fs)
+        t0 = time.perf_counter()
+        res, _ = T.train(cfg, ckpt_dir=tmp, ckpt_every=DRILL_EVERY,
+                         resume=True, **kw)
+        times["resumed"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        diff = [k for (k, a), (_, b) in zip(key_paths(ref), key_paths(res))
+                if not torch.equal(a, b)]
+        n = len(key_paths(ref))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[train] restart drill, {cfg.n_layers} layers ({why}): "
+        f"{DRILL_STEPS} steps straight {times['straight']:.1f}s; "
+        f"checkpoint every {DRILL_EVERY}, failure at {DRILL_FAIL} "
+        f"{times['failed']:.1f}s (one checkpoint, {size / 2**30:.2f} GiB); "
+        f"resumed from step {DRILL_EVERY - 1} {times['resumed']:.1f}s; "
+        f"{n - len(diff)} of {n} leaves (parameters, moments, step) "
+        f"bit-identical; card: {card}")
+    if diff:
+        raise AssertionError(f"the resumed run differs in {len(diff)} "
+                             f"leaves, first {diff[:4]}")
+    return dict(n_layers=cfg.n_layers, why=why, ckpt_gib=size / 2**30,
+                leaves=n, seconds=times)
 
 
 def phase_obs(K):
@@ -2371,9 +2908,20 @@ def main() -> int:
     log(f"[shims] phase in {time.perf_counter() - t0:.1f}s")
     log("[slice10] " + json.dumps({"obs": obs_runs, "shardmap": shard}))
 
+    # 16. training at full width: gradients through the kernel, the
+    # launcher, the restart drill
+    t0 = time.perf_counter()
+    train_grads = phase_train_grads(FK, fops, dev, card)
+    trained = phase_train(FK, dev, card)
+    device_side = phase_train_device(FK, fops, dev, card)
+    drill = phase_train_drill(card)
+    log(f"[train] phase in {time.perf_counter() - t0:.1f}s on {card}")
+    log("[slice11] " + json.dumps({"grads": train_grads, "train": trained,
+                                   "device": device_side, "drill": drill}))
+
     log(f"[time] all phases in {time.perf_counter() - t_start:.1f}s")
 
-    # 16. report
+    # 17. report
     src = "src/repro_torch/kernels/wfa/csrc/wfa.cu"
     kernels = []
     for name, variant in (("wfa_score", "score"), ("wfa_trace", "trace")):
@@ -2458,17 +3006,18 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:82",
-        # the main path's prefills: the launcher's two waves and the
-        # 2,048-token wave
-        "launches": serve_launches + served["launches"],
+        # the main paths: the serve launcher's two prefills, the 2,048-token
+        # wave's prefill and the train launcher's forwards (12 steps)
+        "launches": serve_launches + served["launches"] + trained["launches"],
         "max_abs_err": max(max(flash_worst.values()), flash["max_abs_err"],
-                           served["max_abs_err"]),
+                           served["max_abs_err"], trained["max_abs_err"]),
         # the largest share of a limit (max |err| against 3e-5 / 2e-2; in
         # bf16 also each |err| against 2 ulps of |want| plus a row floor)
-        # over the grid, the served shape and the prefill launches; <= 1
-        # passes
+        # over the grid, the served shape, the prefill launches and the
+        # first training step's launches; <= 1 passes
         "worst_share_of_limit": max(flash_share["wgmma"],
-                                    flash["share"], served["share"]),
+                                    flash["share"], served["share"],
+                                    trained["share"]),
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         # the other bodies on the same inputs: mma.sync (the yardstick of
         # the wgmma design) and the fp32 pipes (fp32, other head dims)
@@ -2476,7 +3025,19 @@ def main() -> int:
         # ptxas at entry (setmaxnreg then gives the consumers 240)
         "registers": wgmma_regs,
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
-        "library_ms": flash["library_ms"]})
+        "library_ms": flash["library_ms"],
+        # training (B 8, S 1,024): launches of the train launcher's run;
+        # the kernel, the plain forward and the attention backward (plain
+        # recompute) each alone, and scaled_dot_product_attention forward
+        # + backward (timed only); the first step's launches against the
+        # plain version (max |err|, the worst share of the limits, and the
+        # share with a key tile dropped); the largest gradient share of
+        # GRAD_TOL against plain attention
+        "training": {"launches": trained["launches"], **device_side["alone"],
+                     "max_abs_err": trained["max_abs_err"],
+                     "share": trained["share"],
+                     "dropped_tile_share": trained["dropped_tile_share"],
+                     "grad_share": train_grads["share"]}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,10 @@ in ``cfg.param_dtype`` and cast to ``cfg.compute_dtype`` at each use;
 normalisations and softmax accumulate in fp32.  Prefill and full-sequence
 attention go through the flash-attention kernel
 (:func:`repro_torch.kernels.flash_attention.flash_attention`), which takes
-the place of the JAX package's ``_sdpa`` and its ``q_chunk`` scan; decode
-attention over the cache stays on :func:`_sdpa`, as in the JAX package.
+the place of the JAX package's ``_sdpa`` and its ``q_chunk`` scan: under
+autograd through :class:`FlashAttention`, whose backward recomputes that
+scan; decode attention over the cache stays on :func:`_sdpa`, as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -134,6 +136,54 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
     return out.reshape(B, Sq, H, dh)
 
 
+def sdpa_chunked(q, k, v, cfg: ModelConfig, *, causal=True):
+    """The JAX package's full-sequence attention (``gqa_forward``): one
+    :func:`_sdpa` over the sequence, or one per block of ``cfg.q_chunk``
+    queries when the sequence is longer; positions from 0."""
+    S = q.shape[1]
+    pos = torch.arange(S, device=q.device)
+    chunk = cfg.q_chunk if S > cfg.q_chunk else S
+    if S % chunk:
+        raise ValueError(f"S {S} is not a multiple of q_chunk {chunk}")
+    outs = []
+    for i in range(0, S, chunk):
+        if causal:
+            mask = pos[i:i + chunk, None] >= pos[None, :]
+        else:
+            mask = torch.ones((chunk, S), dtype=torch.bool, device=q.device)
+        outs.append(_sdpa(q[:, i:i + chunk], k, v, mask, cfg))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Full-sequence attention with the flash-attention kernel on the
+    forward and a gradient: ``FlashAttention.apply(q, k, v, cfg, causal)``.
+
+    The forward is :func:`flash_attention` whole (padding to block
+    multiples, the kernel, the slice back): on the card the hand-written
+    CUDA body, on the CPU its plain version.  It saves the unpadded
+    ``q, k, v``.  The backward recomputes the attention through the plain
+    differentiable path, :func:`sdpa_chunked` (the JAX package's ``_sdpa``
+    and its ``q_chunk`` scan, with the same causal mask from position 0),
+    and returns ``dq, dk, dv`` of the unpadded inputs.  The JAX package
+    trains through that same path and has no backward kernel to port; a
+    hand-written backward is a later speed item."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cfg: ModelConfig, causal: bool = True):
+        ctx.save_for_backward(q, k, v)
+        ctx.cfg, ctx.causal = cfg, causal
+        return flash_attention(q, k, v, causal=causal, device=q.device)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            o = sdpa_chunked(q, k, v, ctx.cfg, causal=ctx.causal)
+            dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
+        return dq, dk, dv, None, None
+
+
 def _rope(cfg: ModelConfig, pos):
     if cfg.rope_theta == 0:
         return None
@@ -142,12 +192,13 @@ def _rope(cfg: ModelConfig, pos):
 
 def gqa_forward(p, h, cfg: ModelConfig, pos, *, causal=True,
                 return_kv=False):
-    """Full-sequence attention (prefill / forward). h [B,S,D], pos [B,S]
-    (``arange(S)`` per row: the kernel's causal mask starts at position 0).
+    """Full-sequence attention (training / prefill). h [B,S,D], pos [B,S]
+    (``arange(S)`` per row: the kernel's causal mask starts at position 0),
+    through :class:`FlashAttention` (with grad off it records no graph).
     """
     c = cfg.cdtype()
     q, k, v = _qkv(p, h, cfg, _rope(cfg, pos))
-    out = flash_attention(q, k, v, causal=causal, device=q.device)
+    out = FlashAttention.apply(q, k, v, cfg, causal)
     y = _out(out, p["wo"], c)
     if return_kv:
         cd = getattr(torch, cfg.cache_dtype)

@@ -1,31 +1,76 @@
 """Architecture registry: one uniform interface over the model families
-(the JAX package's ``models/registry.py``), for the serving functions.
+(the JAX package's ``models/registry.py``).
 
-``get_model_fns(cfg)`` returns the family's ``init_params``, ``prefill``,
-``serve_step``, ``init_cache`` and ``forward``.  The port has the dense
-family only; the training functions come with the training slice (ROADMAP
-§1 item 9).
+``get_model_fns(cfg)`` returns the family's ``init_params``, ``loss_fn``,
+``prefill``, ``serve_step``, ``init_cache`` and ``forward``, with
+``make_train_step`` and ``init_train_state``; ``batch_specs(cfg, shape)``
+returns ``device="meta"`` tensors (the counterpart of ``ShapeDtypeStruct``)
+for the inputs of the loss (``train_*``) or of prefill (``prefill_*``), and
+``synth_batch`` a concrete seeded batch of the same shapes.  The port has
+the dense family only; the others raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
 
 from repro_torch.models import transformer as TFM
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, ShapeSpec
+from repro_torch.optim.adamw import AdamWConfig
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelFns:
     init_params: Callable
+    loss_fn: Callable
     prefill: Callable
     serve_step: Callable
     init_cache: Callable
     forward: Callable
 
+    def make_train_step(self, cfg: ModelConfig, opt_cfg: AdamWConfig,
+                        n_micro: int, grad_transform=None):
+        return TFM.make_train_step(cfg, opt_cfg, n_micro,
+                                   grad_transform=grad_transform,
+                                   loss=self.loss_fn)
+
+    def init_train_state(self, cfg: ModelConfig, gen=0, device=None):
+        return TFM.init_train_state(cfg, gen, device, init=self.init_params)
+
 
 def get_model_fns(cfg: ModelConfig) -> ModelFns:
     TFM._dense_only(cfg)
-    return ModelFns(init_params=TFM.init_params, prefill=TFM.prefill,
-                    serve_step=TFM.serve_step, init_cache=TFM.init_cache,
-                    forward=TFM.forward)
+    return ModelFns(init_params=TFM.init_params, loss_fn=TFM.loss_fn,
+                    prefill=TFM.prefill, serve_step=TFM.serve_step,
+                    init_cache=TFM.init_cache, forward=TFM.forward)
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
+    """Inputs of loss/train for ``train_*`` or of prefill for
+    ``prefill_*``, as ``device="meta"`` int32 tensors."""
+    TFM._dense_only(cfg)
+    B, S = shape.global_batch, shape.seq_len
+    meta = lambda: torch.empty((B, S), dtype=torch.int32, device="meta")
+    specs = {"tokens": meta()}
+    if shape.kind == "train":
+        specs["targets"] = meta()
+    return specs
+
+
+def synth_batch(cfg: ModelConfig, shape: ShapeSpec, seed: int = 0,
+                batch_override: Optional[int] = None) -> Dict[str, Any]:
+    """Concrete synthetic batch matching batch_specs (numpy int32; the
+    JAX package's numbers for the same seed)."""
+    TFM._dense_only(cfg)
+    rng = np.random.default_rng(seed)
+    B = batch_override or shape.global_batch
+    S = shape.seq_len
+    toks = rng.integers(0, cfg.vocab_size, size=(B, S), dtype=np.int32)
+    batch: Dict[str, Any] = {"tokens": toks}
+    if shape.kind == "train":
+        batch["targets"] = np.concatenate(
+            [toks[:, 1:], np.full((B, 1), -1, np.int32)], axis=1)
+    return batch

@@ -1,6 +1,6 @@
 """Decoder-only LM of the dense family (the JAX package's
-``models/transformer.py``): init, forward, prefill, the KV cache and the
-one-token decode step.
+``models/transformer.py``): init, forward, the loss and the train step,
+prefill, the KV cache and the one-token decode step.
 
 Parameters are a nested dict of tensors under the JAX package's names, with
 ``layers`` a list of per-layer dicts (the JAX package stacks them on a
@@ -9,19 +9,31 @@ PyTorch runs the layers in a Python loop.  The KV cache is updated in place
 by :func:`serve_step` (the JAX package returns a new cache), which keeps one
 copy of it on the card.
 
+Training: with grad enabled each block runs under ``torch.utils.
+checkpoint`` by ``cfg.remat_policy`` (the JAX package's ``jax.checkpoint``
+policies) and its attention through ``layers.FlashAttention``;
+:func:`make_train_step` differentiates :func:`loss_fn` and applies AdamW,
+updating the state's tensors in place.
+
 Other families (MoE, MLA, SSM, hybrid, enc-dec, VLM) raise
-``NotImplementedError``: ROADMAP §1 item 9 ports them.
+``NotImplementedError``: they wait in ROADMAP §1's queue.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.common import ModelConfig
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 
 def _dense_only(cfg: ModelConfig) -> None:
@@ -29,8 +41,8 @@ def _dense_only(cfg: ModelConfig) -> None:
             or cfg.mrope):
         raise NotImplementedError(
             f"{cfg.name}: the port runs the dense GQA family only; "
-            f"{cfg.family}/{cfg.attn_kind} models wait for ROADMAP §1 "
-            f"item 9 (LM substrate)")
+            f"{cfg.family}/{cfg.attn_kind} models wait in ROADMAP §1's "
+            f"queue (MoE, MLA, SSM, hybrid, enc-dec, VLM)")
 
 
 # --------------------------------------------------------------------------
@@ -105,6 +117,33 @@ def _block_fwd(cfg: ModelConfig, blk, h, pos, *, return_kv=False):
     return (h, kv) if return_kv else h
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of the products without batch
+    dimensions (the projections, ``aten.mm``; the JAX package's
+    ``dots_with_no_batch_dims_saveable``), recompute the rest (attention
+    with its kernel launch, norms, RoPE, the activation)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _block_remat(cfg: ModelConfig, blk, h, pos):
+    """One block under ``cfg.remat_policy``: ``"everything"`` keeps every
+    activation; ``"nothing"`` recomputes the whole block in the backward;
+    ``"dots"`` recomputes all but the projections.  Blocks draw no random
+    numbers, so no RNG state is kept."""
+    if cfg.remat_policy == "everything" or not torch.is_grad_enabled():
+        return _block_fwd(cfg, blk, h, pos)
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat_policy != "nothing":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    return checkpoint(_block_fwd, cfg, blk, h, pos, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
 def _logits(params, cfg: ModelConfig, h):
     c = cfg.cdtype()
     if cfg.tie_embeddings:
@@ -113,7 +152,10 @@ def _logits(params, cfg: ModelConfig, h):
 
 
 def _embed(params, cfg: ModelConfig, tokens):
-    return params["embed"]["w"][tokens].to(cfg.cdtype())
+    # F.embedding: PyTorch does not list its CUDA backward among the
+    # nondeterministic operations, and the restart drill needs the same
+    # bits from the same inputs
+    return F.embedding(tokens, params["embed"]["w"]).to(cfg.cdtype())
 
 
 def _positions(tokens):
@@ -129,10 +171,91 @@ def forward(params, cfg: ModelConfig, tokens):
     pos = _positions(tokens)
     h = _embed(params, cfg, tokens)
     for blk in params["layers"]:
-        h = _block_fwd(cfg, blk, h, pos)
+        h = _block_remat(cfg, blk, h, pos)
     h = L.rmsnorm(params["final_norm"], h, cfg.rms_eps)
     return (_logits(params, cfg, h),
             torch.zeros((), dtype=torch.float32, device=h.device))
+
+
+# --------------------------------------------------------------------------
+# Loss / train step
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Mean next-token cross-entropy over ``targets >= 0``, from fp32
+    logits (log-sum-exp less the gold logit), as the JAX package's."""
+    logits, _ = forward(params, cfg, batch["tokens"])
+    logits = logits.float()
+    targets = batch["targets"]
+    mask = (targets >= 0).float()
+    tgt = targets.clamp_min(0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, n_micro: int,
+                    grad_transform=None, loss=None):
+    """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    ``batch`` holds ``tokens`` and ``targets`` [B, S] (numpy or tensors);
+    with ``n_micro`` > 1 it splits into that many microbatches along B,
+    whose fp32 gradients are summed and divided by ``n_micro``.  The state's
+    parameters and moments are updated in place; ``metrics`` holds
+    ``loss``, ``grad_norm`` and ``lr`` as 0-d tensors on the state's
+    device."""
+    loss = loss or loss_fn
+
+    def value_and_grad(params, mb):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        l = loss(tree_unflatten(params, leaves), cfg, mb)
+        grads = torch.autograd.grad(l, leaves, materialize_grads=True)
+        return l.detach(), [g.float() for g in grads]
+
+    def train_step(state, batch):
+        params = state["params"]
+        dev = state["step"].device
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        if n_micro == 1:
+            loss_, grads = value_and_grad(params, batch)
+        else:
+            B = next(iter(batch.values())).shape[0]
+            size = B // n_micro
+            loss_, grads = 0.0, None
+            for i in range(n_micro):
+                mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+                l, g = value_and_grad(params, mb)
+                loss_ = loss_ + l
+                grads = g if grads is None else [
+                    a.add_(b) for a, b in zip(grads, g)]
+            grads = [g / n_micro for g in grads]
+            loss_ = loss_ / n_micro
+        params, opt, om = adamw_update(
+            opt_cfg, params, tree_unflatten(params, grads), state["opt"],
+            state["step"], grad_transform=grad_transform)
+        new_state = {"params": params, "opt": opt, "step": state["step"] + 1}
+        return new_state, {"loss": loss_, **om}
+
+    return train_step
+
+
+def init_train_state(cfg: ModelConfig, gen=0, device=None, init=None):
+    """-> (state, None): ``{"params", "opt": {"m", "v"}, "step"}`` on
+    ``device`` (``None``: the card), parameters from ``init`` (default
+    :func:`init_params`), fp32 moments at 0, step an int32 0-d tensor.  The
+    second item stands for the JAX package's logical axes, which come with
+    the sharding rules (not ported yet)."""
+    dev = resolve_device(device)
+    params = (init or init_params)(cfg, gen, dev)
+    return train_state(params), None
+
+
+def train_state(params):
+    """A fresh training state around ``params``."""
+    dev = tree_leaves(params)[0].device
+    return {"params": params, "opt": adamw_init(params),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 # --------------------------------------------------------------------------
