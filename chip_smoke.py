@@ -172,7 +172,24 @@ Phases (each raises on failure, and the script then exits non-zero):
    attention on the plain path as the yardstick (tokens/s, and the step-0
    loss within TRAIN_LOSS0_TOL of the kernel run's, a check of the run's
    set-up rather than of the kernel);
-17. report — a ``kernels`` JSON line, the card's name and power limit, and
+17. the MoE family — (a) phi3.5-moe-42b-a6.6b at published widths, 12 of
+   its 32 layers (the card holds 59 GiB of fp32 weights, not 156), seeded
+   weights: one ``BatchServer`` wave of 8 x 2,048 tokens, 32 new, at the
+   published capacity factor 1.25, through :func:`serve_wave` as phase
+   12b: 12 flash launches at G 4 on the wgmma body, each held against the
+   plain version; prefill and decode tokens/s, the peak, the MoE layers'
+   share of the prefill by CUDA events, the dropped slots of every MoE
+   call; then 2 of the prompts at a capacity no slot can exceed, prefill +
+   decode logits against one ``forward`` given the wave's routes
+   (:func:`moe_e2e`: routes flip on bf16 rounding at near ties), the two
+   paths' router probabilities within MOE_ROUTER_TOL; (b) deepseek-v2-
+   lite-16b whole (27 layers, MLA: no flash launch), the same wave and
+   checks for the naive and the absorbed decode; (c) ``launch.train.main``
+   on phi at 2 layers, 2 x 1,024 tokens, 3 steps under ``"dots"``: a
+   finite loss that holds the aux term, the router and every expert moved
+   with a gradient, each flash launch of step 0 held against the plain
+   version; step ms, tokens/s, peak;
+18. report — a ``kernels`` JSON line, the card's name and power limit, and
    the final ``{"ok": true, ...}`` line.
 
 It needs one card and exits non-zero without one.  It imports nothing of
@@ -297,6 +314,31 @@ TRAIN_LOSS0_TOL = 1e-2
 # the planted fault of phase 16b: the wgmma body's 128-key tile 4 (keys
 # 512-639) left out of every row, which moves rows 512-1,023 of S 1,024
 TRAIN_DROP_TILE = 4
+# phase 17, the MoE family at published widths with fp32 weights
+# (configs/phi3_5_moe_42b.py, configs/deepseek_v2_lite_16b.py).  phi's 32
+# layers take 156 GiB (78 GiB even in bf16), so it serves at 12 layers
+# (15.9 B parameters, 59 GiB) and trains at 2 (12 B a parameter for the
+# weights, gradients and AdamW moments: 42.7 GiB); deepseek serves whole
+# (27 layers, 58.5 GiB).
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MLA_ARCH = "deepseek-v2-lite-16b"
+MOE_SERVE_LAYERS = 12
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_BATCH = 2
+MOE_TRAIN_STEPS = 3
+# prefill + decode against one forward for MoE (moe_e2e): top-k routing
+# flips where bf16 rounding reorders a near tie, and a flipped token moves
+# by far more than rounding, so the forward takes the routes the wave took
+# (at a capacity no slot can exceed, since capacity depends on the token
+# count) and is held to LM_E2E_*_TOL.  The two paths' router probabilities
+# must then agree within MOE_ROUTER_TOL (relative; bf16 differences of the
+# hidden state move router logits by a few hundredths: 0.060 at most on the
+# smoke models, port against JAX), so the forward's own choice can differ
+# from the given routes only where its K-th and (K+1)-th probabilities lie
+# within 2 x MOE_ROUTER_TOL.  How often that happens depends on the experts
+# and top k (printed: on the H100, 0.06% of phi's pairs, 16 experts top 2;
+# 7.8% of deepseek's, 64 top 6).
+MOE_ROUTER_TOL = 2 ** -2
 
 
 def log(*a):
@@ -1790,31 +1832,27 @@ def phase_serve_defaults(FK):
     return launches
 
 
-def phase_serve_long(FK, dev, card):
-    """Phase 12b: one BatchServer wave of 8 prompts of 2,048 tokens, 32 new
-    each, max_seq 4,096, at full width.  The prefill must launch the flash
-    kernel once per layer; each launch is held against the plain version on
-    its own inputs; for 2 requests the logits of prefill + decode (plain
-    attention over the cache) must equal those of one forward (flash kernel)
-    over prompt + generated tokens within the stated bf16 tolerance."""
-    import numpy as np
+def serve_wave(FK, dev, cfg, params, prompts, *, flash_layers, moe=None):
+    """One BatchServer wave of ``prompts`` (equal lengths), LM_NEW new
+    tokens each, max_seq LM_MAX_SEQ, on the card.  The prefill must launch
+    the flash kernel ``flash_layers`` times, all on the wgmma body; each
+    launch is held against the plain version on its own inputs.  With
+    ``moe`` (the port's ``models.moe``), each MoE call of the prefill is
+    timed by CUDA events and every MoE call counts its dropped slots.  ->
+    dict: the outputs, the logits of rows 0 .. LM_E2E_ROWS - 1 (prefill,
+    then each decode step), wall seconds of prefill and decode, the flash
+    check, the peak memory, the MoE times and drops."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import BatchServer
     from repro_torch.models import layers as LM
-    from repro_torch.models import transformer as TFM
 
-    cfg = get_config(LM_ARCH)
-    params = TFM.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                             dev)
-    server = BatchServer(cfg, params, max_seq=LM_MAX_SEQ, batch=LM_BATCH,
+    batch, plen = len(prompts), len(prompts[0])
+    server = BatchServer(cfg, params, max_seq=LM_MAX_SEQ, batch=batch,
                          device=dev)
-    rng = np.random.default_rng(14)
-    prompts = [rng.integers(0, cfg.vocab_size, size=LM_PROMPT)
-               .astype(np.int32) for _ in range(LM_BATCH)]
     logits, times, captured = [], {"prefill": 0.0, "decode": 0.0}, []
     prefill, step = server._prefill, server._step
     launch = FK.flash_attention_cuda
+    moe_events, stats = [], {"prefill": {}, "decode": {}}
 
     def capturing(q, k, v, **kw):
         ev = (torch.cuda.Event(enable_timing=True),
@@ -1836,12 +1874,34 @@ def phase_serve_long(FK, dev, card):
             return out
         return run
 
-    def prefill_capturing(*a):
-        FK.flash_attention_cuda = capturing
-        try:
-            return prefill(*a)
-        finally:
-            FK.flash_attention_cuda = launch
+    def counting(phase, timed_events):
+        real = moe.moe_forward
+
+        def moe_forward(p, x, c, _=None):
+            if not timed_events:
+                return real(p, x, c, stats[phase])
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = real(p, x, c, stats[phase])
+            ev[1].record()
+            moe_events.append(ev)
+            return out
+        return real, moe_forward
+
+    def patched(fn, phase, flash):
+        def run(*a):
+            if flash:
+                FK.flash_attention_cuda = capturing
+            if moe is not None:
+                real, moe.moe_forward = counting(phase, phase == "prefill")
+            try:
+                return fn(*a)
+            finally:
+                FK.flash_attention_cuda = launch
+                if moe is not None:
+                    moe.moe_forward = real
+        return run
 
     sdpa, sdpa_events = LM._sdpa, []
 
@@ -1861,8 +1921,19 @@ def phase_serve_long(FK, dev, card):
         finally:
             LM._sdpa = sdpa
 
-    server._prefill = timed("prefill", prefill_capturing)
-    server._step = timed("decode", step_timing_attention)
+    prefill_ev = [torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)]
+
+    def prefill_events(*a):
+        prefill_ev[0].record()
+        out = prefill(*a)
+        prefill_ev[1].record()
+        return out
+
+    server._prefill = timed("prefill", patched(prefill_events, "prefill",
+                                               True))
+    server._step = timed("decode", patched(step_timing_attention, "decode",
+                                           False))
     FK.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1870,26 +1941,31 @@ def phase_serve_long(FK, dev, card):
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches = FK.LAUNCHES["flash_attention"]
-    if launches != cfg.n_layers or len(captured) != cfg.n_layers:
+    if launches != flash_layers or len(captured) != flash_layers:
         raise AssertionError(f"the prefill launched the flash kernel "
-                             f"{launches} times, not {cfg.n_layers}")
+                             f"{launches} times, not {flash_layers}")
     if FK.PATH_LAUNCHES["wgmma"] != launches:
         raise AssertionError(f"the prefill ran the flash bodies "
                              f"{FK.PATH_LAUNCHES}, not all on wgmma")
-    if any(len(o) != LM_PROMPT + LM_NEW for o in outs):
+    if any(len(o) != plen + LM_NEW for o in outs):
         raise AssertionError(f"lengths {[len(o) for o in outs]}")
     n_steps = len(logits) - 1
-    prefill_tps = LM_BATCH * LM_PROMPT / times["prefill"]
-    decode_tps = LM_BATCH * n_steps / times["decode"]
-    flash_s = sum(ev[0].elapsed_time(ev[1]) for *_, ev in captured) / 1e3
-    sdpa_s = sum(a.elapsed_time(b) for a, b in sdpa_events) / 1e3
-    log(f"[serve] {LM_ARCH} wave of {LM_BATCH} x {LM_PROMPT} tokens, "
-        f"{LM_NEW} new, max_seq {LM_MAX_SEQ}: prefill {times['prefill']:.3f}s "
-        f"({prefill_tps:,.0f} tokens/s; the {len(captured)} flash launches "
-        f"{flash_s:.4f}s of it by CUDA events), decode {n_steps} steps in "
-        f"{times['decode']:.3f}s ({decode_tps:,.1f} tokens/s; plain "
-        f"attention over the cache {sdpa_s:.4f}s of it), wall "
-        f"{wall:.2f}s, peak memory {peak / 2**30:.2f} GiB on {card}")
+    r = dict(outs=outs, logits=logits, wall=wall, peak_gib=peak / 2**30,
+             launches=launches, n_steps=n_steps,
+             prefill_s=times["prefill"], decode_s=times["decode"],
+             prefill_tps=batch * plen / times["prefill"],
+             decode_tps=batch * n_steps / times["decode"],
+             flash_s=sum(ev[0].elapsed_time(ev[1]) for *_, ev in captured)
+             / 1e3,
+             sdpa_s=sum(a.elapsed_time(b) for a, b in sdpa_events) / 1e3)
+    if moe is not None:
+        r["moe_share"] = (sum(a.elapsed_time(b) for a, b in moe_events)
+                          / prefill_ev[0].elapsed_time(prefill_ev[1]))
+        r["prefill_drops"] = [int(d) for d in stats["prefill"]["dropped"]]
+        r["prefill_slots"] = stats["prefill"]["slots"][0]
+        r["capacity"] = stats["prefill"]["capacity"][0]
+        r["decode_drops"] = sum(int(d) for d in stats["decode"]["dropped"])
+        r["decode_calls"] = len(stats["decode"]["dropped"])
 
     # every flash launch of the prefill against the plain version
     err = share = 0.0
@@ -1903,37 +1979,466 @@ def phase_serve_long(FK, dev, card):
         if sh > share:
             where = f"{flash_worst(o, want)} in layer {layer}"
         err, share = max(err, e), max(share, sh)
-    shape = tuple(captured[0][0].shape)
-    del captured
-    log(f"[serve] {cfg.n_layers} prefill flash launches (q {shape}, all on "
-        f"the wgmma body) = plain: max |err| {err:.3g} (tol 2e-2), worst "
-        f"share {share:.3f} of the limits; of the elementwise limit alone "
-        f"{where}")
+    r.update(max_abs_err=err, share=share, where=where)
+    if captured:
+        (B, S, H, dh), KV = captured[0][0].shape, captured[0][1].shape[2]
+        r.update(q_shape=(B, S, H, dh), flash_launch_ms=r["flash_s"] * 1e3
+                 / len(captured), flash_bound_ms=attention_bound(
+                     B, S, S, H, KV, dh, True)[0])
+    return r
 
-    # prefill + decode logits against one forward over the same tokens
-    seq = torch.as_tensor(np.stack(outs[:LM_E2E_ROWS]), device=dev).long()
-    FK.reset_launches()
-    with torch.inference_mode():
-        full, _ = TFM.forward(params, cfg, seq)
-    if FK.LAUNCHES["flash_attention"] != cfg.n_layers:
-        raise AssertionError("forward did not run the flash kernel per layer")
-    ref = full[:, LM_PROMPT - 1:LM_PROMPT - 1 + len(logits)].float()
-    dec = torch.stack(logits, dim=1)
+
+def log_wave(name, r, card):
+    log(f"[serve] {name} wave of {len(r['outs'])} x "
+        f"{len(r['outs'][0]) - LM_NEW} tokens, {LM_NEW} new, max_seq "
+        f"{LM_MAX_SEQ}: prefill {r['prefill_s']:.3f}s "
+        f"({r['prefill_tps']:,.0f} tokens/s; the {r['launches']} flash "
+        f"launches {r['flash_s']:.4f}s of it by CUDA events), decode "
+        f"{r['n_steps']} steps in {r['decode_s']:.3f}s "
+        f"({r['decode_tps']:,.1f} tokens/s; plain attention over the cache "
+        f"{r['sdpa_s']:.4f}s of it), wall {r['wall']:.2f}s, peak memory "
+        f"{r['peak_gib']:.2f} GiB on {card}")
+    if r["launches"]:
+        log(f"[serve] {name}: {r['launches']} prefill flash launches (q "
+            f"{r['q_shape']}, all on the wgmma body; "
+            f"{r['flash_launch_ms']:.4f} ms a launch against a bound of "
+            f"{r['flash_bound_ms']:.4f} ms) = plain: max |err| "
+            f"{r['max_abs_err']:.3g} (tol 2e-2), worst share "
+            f"{r['share']:.3f} of the limits; of the elementwise limit "
+            f"alone {r['where']}")
+
+
+def e2e_check(name, dec, ref):
+    """Decode logits [rows, positions, V] against the forward's: max and
+    mean |difference| within LM_E2E_MAX_TOL and LM_E2E_MEAN_TOL."""
+    import torch
     diff = (dec - ref).abs()
     e2e = dict(max=float(diff.max()), mean=float(diff.mean()),
                logit_std=float(ref.std()),
                argmax_agree=float((dec.argmax(-1) == ref.argmax(-1))
                                   .float().mean()))
-    log(f"[serve] prefill + decode vs forward, {LM_E2E_ROWS} requests x "
-        f"{len(logits)} positions: max |dlogit| {e2e['max']:.4f} (tol "
-        f"{LM_E2E_MAX_TOL}), mean {e2e['mean']:.5f} (tol {LM_E2E_MEAN_TOL}), "
-        f"logit std {e2e['logit_std']:.3f}, greedy tokens agree on "
-        f"{100 * e2e['argmax_agree']:.1f}%")
+    log(f"[serve] {name} prefill + decode vs forward, {dec.shape[0]} "
+        f"requests x {dec.shape[1]} positions: max |dlogit| "
+        f"{e2e['max']:.4f} (tol {LM_E2E_MAX_TOL}), mean {e2e['mean']:.5f} "
+        f"(tol {LM_E2E_MEAN_TOL}), logit std {e2e['logit_std']:.3f}, greedy "
+        f"tokens agree on {100 * e2e['argmax_agree']:.1f}%")
     if not (e2e["max"] <= LM_E2E_MAX_TOL and e2e["mean"] <= LM_E2E_MEAN_TOL):
-        raise AssertionError(f"prefill + decode logits != forward: {e2e}")
+        raise AssertionError(f"{name}: prefill + decode logits != forward: "
+                             f"{e2e}")
     if not torch.isfinite(dec).all():
-        raise AssertionError("non-finite logits")
-    return dict(launches=launches, max_abs_err=err, share=share)
+        raise AssertionError(f"{name}: non-finite logits")
+    return e2e
+
+
+def phase_serve_long(FK, dev, card):
+    """Phase 12b: one BatchServer wave of 8 prompts of 2,048 tokens, 32 new
+    each, max_seq 4,096, at full width.  The prefill must launch the flash
+    kernel once per layer; each launch is held against the plain version on
+    its own inputs; for 2 requests the logits of prefill + decode (plain
+    attention over the cache) must equal those of one forward (flash kernel)
+    over prompt + generated tokens within the stated bf16 tolerance."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TFM
+
+    cfg = get_config(LM_ARCH)
+    params = TFM.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, cfg.vocab_size, size=LM_PROMPT)
+               .astype(np.int32) for _ in range(LM_BATCH)]
+    r = serve_wave(FK, dev, cfg, params, prompts, flash_layers=cfg.n_layers)
+    log_wave(LM_ARCH, r, card)
+
+    # prefill + decode logits against one forward over the same tokens
+    seq = torch.as_tensor(np.stack(r["outs"][:LM_E2E_ROWS]), device=dev) \
+        .long()
+    FK.reset_launches()
+    with torch.inference_mode():
+        full, _ = TFM.forward(params, cfg, seq)
+    if FK.LAUNCHES["flash_attention"] != cfg.n_layers:
+        raise AssertionError("forward did not run the flash kernel per layer")
+    n = len(r["logits"])
+    e2e_check(LM_ARCH, torch.stack(r["logits"], dim=1),
+              full[:, LM_PROMPT - 1:LM_PROMPT - 1 + n].float())
+    return {k: r[k] for k in ("launches", "max_abs_err", "share")}
+
+
+def moe_e2e(cfg, params, prompts, new, device, shift=0,
+            max_seq=None):
+    """Prefill + decode against one forward for an MoE model.  A wave of
+    ``prompts`` (equal lengths) is served with every route recorded; one
+    ``forward`` over the served tokens then gets, at every MoE layer, the
+    routes the wave took for each token (``shift``: every route moved by
+    that many experts, the planted fault), since top-k routing flips on
+    bf16 rounding at near ties and a flipped token moves by far more than
+    rounding.  -> dict: max and mean |logit difference| over the prefill's
+    last position and every decode step, the logits' std, the positions
+    compared, the slots dropped in the wave, and where the forward's own
+    choice differs from the given routes: the share of (token, layer)
+    pairs, and the largest relative difference between the two paths'
+    router probabilities over all of them."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import BatchServer
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TFM
+
+    B, S = len(prompts), len(prompts[0])
+    server = BatchServer(cfg, params, max_seq=max_seq or S + new + 1,
+                         batch=B, device=device)
+    calls, logits, stats = [], [], {}
+    top, fwd = MOE.top_k, MOE.moe_forward
+
+    def recording(probs, k):
+        vals, idx = top(probs, k)
+        calls.append((probs, idx))
+        return vals, idx
+
+    def keep_logits(fn):
+        return lambda *a: (lambda out: logits.append(out[0]) or out)(fn(*a))
+
+    server._prefill = keep_logits(server._prefill)
+    server._step = keep_logits(server._step)
+    MOE.top_k = recording
+    MOE.moe_forward = lambda p, x, c, _=None: fwd(p, x, c, stats)
+    try:
+        outs = server.generate(prompts, max_new=new)
+    finally:
+        MOE.top_k, MOE.moe_forward = top, fwd
+    n_moe = sum("moe" in b for b in params["layers"])
+    steps = len(logits) - 1
+    if len(calls) != n_moe * (1 + steps):
+        raise AssertionError(f"{len(calls)} MoE calls, not {n_moe} x "
+                             f"{1 + steps}")
+    # per MoE layer: the routes of positions 0 .. S - 1 (prefill), then
+    # S .. S + steps - 1 (one per decode step), for the forward's tokens
+    K, E = cfg.top_k, cfg.n_experts
+    given, probs_served = [], []
+    for j in range(n_moe):
+        per_step = [calls[n_moe * (1 + t) + j] for t in range(steps)]
+        idx = torch.cat([calls[j][1].reshape(B, S, K)]
+                        + [c[1].reshape(B, 1, K) for c in per_step], dim=1)
+        pr = torch.cat([calls[j][0].reshape(B, S, E)]
+                       + [c[0].reshape(B, 1, E) for c in per_step], dim=1)
+        given.append((idx.reshape(-1, K) + shift) % E)
+        probs_served.append(pr.reshape(-1, E))
+    seq = torch.as_tensor(np.stack(outs), device=device).long()[:, :S + steps]
+    at, differ, worst = [0], [0, 0], [0.0]
+
+    def forcing(probs, k):
+        j = at[0]
+        at[0] += 1
+        idx = given[j]
+        own = top(probs, k)[1]
+        bad = torch.any(torch.sort(own, 1)[0] != torch.sort(idx, 1)[0], 1)
+        differ[0] += int(bad.sum())
+        differ[1] += len(bad)
+        worst[0] = max(worst[0], float(((probs - probs_served[j]).abs()
+                                        / probs_served[j]).max()))
+        return probs.gather(-1, idx), idx
+
+    MOE.top_k = forcing
+    try:
+        with torch.inference_mode():
+            full, _ = TFM.forward(params, cfg, seq)
+    finally:
+        MOE.top_k = top
+    ref = full[:, S - 1:S - 1 + len(logits)].float()
+    dec = torch.stack(logits, dim=1)
+    diff = (dec - ref).abs()
+    return dict(max=float(diff.max()), mean=float(diff.mean()),
+                logit_std=float(ref.std()), positions=len(logits),
+                argmax_agree=float((dec.argmax(-1) == ref.argmax(-1))
+                                   .float().mean()),
+                dropped=sum(int(d) for d in stats["dropped"]),
+                routes_differ=differ[0] / differ[1],
+                router_rel_diff=worst[0], finite=bool(torch.isfinite(dec)
+                                                      .all()))
+
+
+def check_moe_e2e(name, chk):
+    log(f"[moe] {name} prefill + decode vs forward (no-drop capacity, the "
+        f"forward on the wave's routes), {LM_E2E_ROWS} requests x "
+        f"{chk['positions']} positions: max |dlogit| {chk['max']:.4f} (tol "
+        f"{LM_E2E_MAX_TOL}), mean {chk['mean']:.5f} (tol {LM_E2E_MEAN_TOL}),"
+        f" logit std {chk['logit_std']:.3f}, greedy tokens agree on "
+        f"{100 * chk['argmax_agree']:.1f}%; dropped slots {chk['dropped']}; "
+        f"the forward's own routes differ on {100 * chk['routes_differ']:.3f}"
+        f"% of (token, layer) pairs, router probabilities of the two paths "
+        f"within {chk['router_rel_diff']:.4f} relative (tol "
+        f"{MOE_ROUTER_TOL})")
+    if not (chk["max"] <= LM_E2E_MAX_TOL and chk["mean"] <= LM_E2E_MEAN_TOL
+            and chk["finite"]):
+        raise AssertionError(f"{name}: prefill + decode logits != forward: "
+                             f"{chk}")
+    if chk["dropped"]:
+        raise AssertionError(f"{name}: the no-drop wave dropped slots")
+    if not chk["router_rel_diff"] <= MOE_ROUTER_TOL:
+        raise AssertionError(f"{name}: the paths' routers disagree: {chk}")
+
+
+def free_card():
+    """Drop what only reference cycles still hold (a BatchServer and the
+    wrappers around its calls keep the weights alive) and return the
+    cache to the card."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_params(cfg, dev, seed):
+    """Seeded random weights on the card -> (params, seconds, GiB)."""
+    import torch
+    from repro_torch.models import transformer as TFM
+    from repro_torch.tree import tree_leaves
+    free_card()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = TFM.init_params(cfg, torch.Generator(device=dev)
+                             .manual_seed(seed), dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    return params, time.perf_counter() - t0, n / 2**30
+
+
+def phase_moe_serve(FK, dev, card, arch, n_layers, why):
+    """Phase 17a / 17b: an MoE model at published widths (``n_layers`` of
+    its layers, fp32 weights), one BatchServer wave of LM_BATCH x
+    LM_PROMPT tokens at the published capacity factor: prefill and decode
+    tokens/s, the peak, the MoE layers' share of the prefill (CUDA
+    events), the dropped slots of each call; the flash kernel once per
+    layer on the wgmma body (GQA; MLA launches none), each launch held
+    against the plain version.  Then a second wave of LM_E2E_ROWS of the
+    prompts at a capacity no slot can exceed (n_experts / top_k):
+    prefill + decode logits against one forward (:func:`moe_e2e`).  MLA
+    models run both decode paths (naive, absorbed)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import BatchServer
+    from repro_torch.models import moe as MOE
+
+    cfg = get_config(arch).replace(n_layers=n_layers)
+    params, init_s, gib = moe_params(cfg, dev, 17)
+    rng = np.random.default_rng(18)
+    prompts = [rng.integers(0, cfg.vocab_size, size=LM_PROMPT)
+               .astype(np.int32) for _ in range(LM_BATCH)]
+    # the first wave loads and picks kernels for these shapes: time it
+    # apart (2 new tokens), then measure a warm wave
+    t0 = time.perf_counter()
+    BatchServer(cfg, params, max_seq=LM_MAX_SEQ, batch=LM_BATCH,
+                device=dev).generate(prompts, max_new=2)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    free_card()
+    log(f"[moe] {arch}: {cfg.n_layers} of {get_config(arch).n_layers} "
+        f"layers ({why}), {cfg.param_count():,} parameters, {gib:.2f} GiB "
+        f"of fp32 weights made on the card in {init_s:.1f}s; a first wave "
+        f"of the same prompts, 2 new tokens, {cold:.2f}s")
+    gqa = cfg.attn_kind == "gqa"
+    out = {"n_layers": cfg.n_layers, "params": cfg.param_count()}
+    for absorb in ((False,) if gqa else (False, True)):
+        c = cfg.replace(mla_absorb=absorb)
+        name = arch + (" (absorbed decode)" if absorb else "")
+        r = serve_wave(FK, dev, c, params, prompts,
+                       flash_layers=cfg.n_layers if gqa else 0, moe=MOE)
+        log_wave(name, r, card)
+        log(f"[moe] {name}: the MoE layers {100 * r['moe_share']:.1f}% of "
+            f"the prefill (CUDA events); dropped slots of "
+            f"{r['prefill_slots']:,} per prefill call (capacity "
+            f"{r['capacity']:,} a expert, factor {cfg.capacity_factor}): "
+            f"{r['prefill_drops']}; in {r['decode_calls']} decode calls "
+            f"{r['decode_drops']}")
+        nd = c.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+        chk = moe_e2e(nd, params, prompts[:LM_E2E_ROWS], LM_NEW, dev,
+                      max_seq=LM_MAX_SEQ)
+        check_moe_e2e(name, chk)
+        if not absorb:
+            top, total = moe_layer_profile(MOE, c, params["layers"][-1]["moe"],
+                                           dev)
+            log(f"[moe] {arch}: one MoE layer alone at the prefill shape "
+                f"({LM_BATCH} x {LM_PROMPT} tokens of unit RMS, torch."
+                f"profiler): {total:.3f} ms of kernels; the largest: "
+                + "; ".join(f"{k} {v:.3f} ms" for k, v in top))
+        out["absorbed" if absorb else "naive"] = dict(
+            {k: r.get(k) for k in ("prefill_tps", "decode_tps", "peak_gib",
+                                   "moe_share", "prefill_drops",
+                                   "decode_drops", "launches", "max_abs_err",
+                                   "share", "flash_launch_ms",
+                                   "flash_bound_ms")},
+            e2e={k: chk[k] for k in ("max", "mean", "routes_differ",
+                                     "router_rel_diff")})
+    del params
+    free_card()
+    return out
+
+
+def moe_layer_profile(MOE, cfg, p, dev):
+    """One MoE layer's call at the prefill shape (LM_BATCH x LM_PROMPT
+    tokens, random of unit RMS) under ``torch.profiler`` -> (the 6 kernels
+    with the most device time [(name, ms)], total device ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=dev).manual_seed(19)
+    m = torch.randn((LM_BATCH, LM_PROMPT, cfg.d_model), generator=gen,
+                    device=dev).to(cfg.cdtype())
+    with torch.inference_mode():
+        MOE.moe_forward(p, m, cfg)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            MOE.moe_forward(p, m, cfg)
+            torch.cuda.synchronize()
+    rows = sorted(((e.key[:60], e.self_device_time_total / 1e3)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda kv: -kv[1])
+    return rows[:6], sum(v for _, v in rows)
+
+
+def hold_launches(FK, captured, dev):
+    """Each captured flash launch ``(q, k, v, o, kw)`` (host copies)
+    against the plain version on its own inputs, to the elementwise bf16
+    limit alone -> (max |err|, worst share, where, the last launch's
+    inputs and plain output on the card)."""
+    err = share = 0.0
+    where = ""
+    for i, (q, k, v, o, kw) in enumerate(captured):
+        q, k, v, o = (t.to(dev) for t in (q, k, v, o))
+        want_o = FK.flash_attention_plain(q, k, v, **kw)
+        e, sh = flash_check(o, want_o, absolute=False)
+        if not sh <= 1:
+            raise AssertionError(f"flash launch {i} != plain: max "
+                                 f"|err| {e}, {sh:.3g} of the limit; "
+                                 f"{flash_worst(o, want_o)}")
+        if sh > share:
+            where = f"{flash_worst(o, want_o)} in launch {i}"
+        err, share = max(err, e), max(share, sh)
+    return err, share, where, (q, k, v, kw, want_o)
+
+
+def phase_moe_train(FK, dev, card):
+    """Phase 17c: ``launch.train.main`` on phi3.5-moe at published widths,
+    MOE_TRAIN_LAYERS layers (``get_config`` cut for the run), B
+    MOE_TRAIN_BATCH x S TRAIN_SEQ, MOE_TRAIN_STEPS steps under the model's
+    ``"dots"`` remat.  The loss must be finite and hold the aux term
+    (``loss_fn`` less the same loss at ``router_aux_coef`` 0 equals coef x
+    aux / n_layers on the final weights); the router and every expert of
+    w1 / w2 / w3 must move from their seeded start and carry a nonzero
+    first moment; every layer's forward launches the flash kernel on the
+    wgmma body, each launch of the first step held against the plain
+    version."""
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStreamSpec, batch_for_step
+    from repro_torch.launch import train as T
+    from repro_torch.models import transformer as TFM
+
+    free_card()
+    cfg = get_config(MOE_ARCH).replace(n_layers=MOE_TRAIN_LAYERS)
+    forwards = 1 if cfg.remat_policy == "everything" else 2
+    per_step = cfg.n_layers * forwards
+    launch, captured, kept = FK.flash_attention_cuda, [], {}
+
+    def capturing(q, k, v, **kw):
+        o = launch(q, k, v, **kw)
+        if len(captured) < per_step:
+            captured.append((*(t.cpu() for t in (q, k, v, o)), kw))
+        return o
+
+    def keeping(*a, **kw):
+        kept["state"], kept["losses"] = real_train(*a, **kw)
+        return kept["state"], kept["losses"]
+
+    real_get, real_train = T.get_config, T.train
+    T.get_config = lambda name: real_get(name).replace(
+        n_layers=MOE_TRAIN_LAYERS)
+    T.train = keeping
+    FK.flash_attention_cuda = capturing
+    FK.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        rc, rows = run_train_main(
+            ["--arch", MOE_ARCH, "--global-batch", str(MOE_TRAIN_BATCH),
+             "--seq", str(TRAIN_SEQ), "--steps", str(MOE_TRAIN_STEPS),
+             "--log-every", "1"])
+    finally:
+        T.get_config, T.train = real_get, real_train
+        FK.flash_attention_cuda = launch
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(FK.PATH_LAUNCHES)
+    want = per_step * MOE_TRAIN_STEPS
+    if rc != 0 or [r[0] for r in rows] != list(range(MOE_TRAIN_STEPS)):
+        raise AssertionError(f"train.main: rc {rc}, steps "
+                             f"{[r[0] for r in rows]}")
+    if launches["wgmma"] != want or FK.LAUNCHES["flash_attention"] != want:
+        raise AssertionError(f"{MOE_TRAIN_STEPS} steps launched the flash "
+                             f"bodies {launches}, not wgmma {want} times")
+    losses = [r[1] for r in rows]
+    if not all(x == x and abs(x) < float("inf") for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    step_ms = statistics.median(r[2] for r in rows[1:])
+    tokens = MOE_TRAIN_BATCH * TRAIN_SEQ
+
+    # the aux term is in the loss, on the final weights and step 0's batch
+    state = kept.pop("state")
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch_for_step(
+        TokenStreamSpec(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                        global_batch=MOE_TRAIN_BATCH, seed=0), 0).items()}
+    with torch.no_grad():
+        loss = float(TFM.loss_fn(state["params"], cfg, batch))
+        ce = float(TFM.loss_fn(state["params"],
+                               cfg.replace(router_aux_coef=0.0), batch))
+        aux = float(TFM.forward(state["params"], cfg, batch["tokens"])[1])
+    aux_term = cfg.router_aux_coef * aux / cfg.n_layers
+    if not (aux > 0 and abs(loss - ce - aux_term) <= 1e-3 * aux_term):
+        raise AssertionError(f"the loss {loss} is not the cross-entropy {ce}"
+                             f" + the aux term {aux_term}")
+
+    # the router and every expert moved and saw a gradient (phi has no
+    # shared expert)
+    start = TFM.init_params(cfg, 0, dev)
+    moved = {}
+    for i, (blk, blk0) in enumerate(zip(state["params"]["layers"],
+                                        start["layers"])):
+        m = state["opt"]["m"]["layers"][i]["moe"]
+        for name in ("router", "w1", "w2", "w3"):
+            a, b, g = blk["moe"][name], blk0["moe"][name], m[name]
+            dims = (0,) if name == "router" else (1, 2)
+            ok = (a != b).any(dim=dims) & (g != 0).any(dim=dims)
+            moved[f"{i}.{name}"] = f"{int(ok.sum())}/{ok.numel()}"
+            if not bool(ok.all()):
+                raise AssertionError(f"layer {i} {name}: moved with a "
+                                     f"gradient in {moved[f'{i}.{name}']}")
+    del start, state
+    err, share, where, _ = hold_launches(FK, captured, dev)
+    shape = tuple(captured[0][0].shape)
+    del captured
+    free_card()
+    log(f"[moe] train {MOE_ARCH}, {cfg.n_layers} of "
+        f"{get_config(MOE_ARCH).n_layers} layers ({cfg.param_count():,} "
+        f"parameters; fp32 weights, gradients and AdamW moments), "
+        f"{MOE_TRAIN_BATCH} x {TRAIN_SEQ} tokens, {MOE_TRAIN_STEPS} steps "
+        f"in {wall:.1f}s: loss {losses[0]:.4f} -> {losses[-1]:.4f} (aux "
+        f"term {aux_term:.5f} on the final weights); step {step_ms:.1f} ms "
+        f"(median of steps 1-{MOE_TRAIN_STEPS - 1}), "
+        f"{tokens / (step_ms / 1e3):,.0f} tokens/s, peak memory "
+        f"{peak / 2**30:.2f} GiB; flash launches {launches['wgmma']} on "
+        f"wgmma; router and experts moved with a gradient (columns or "
+        f"experts per layer): {moved}; card: {card}")
+    log(f"[moe] train: the {per_step} flash launches of step 0 (q {shape}, "
+        f"bf16, causal) = plain: max |err| {err:.3g}, worst share "
+        f"{share:.3f} of the elementwise limit, {where}")
+    return dict(launches=launches["wgmma"], step_ms=step_ms,
+                tokens_per_s=tokens / (step_ms / 1e3), peak_gib=peak / 2**30,
+                losses=losses, aux_term=aux_term, max_abs_err=err,
+                share=share)
 
 
 def block_attention_grads(cfg, blk, h, attn):
@@ -2136,26 +2641,15 @@ def phase_train(FK, dev, card):
         f" TFLOP/s), peak memory {peak / 2**30:.2f} GiB; card: {card}")
 
     # the first step's flash launches against the plain version
-    err = share = 0.0
-    where = ""
     if len(captured) != per_step:
         raise AssertionError(f"captured {len(captured)} launches of step 0, "
                              f"not {per_step}")
-    for i, (q, k, v, o, kw) in enumerate(captured):
-        q, k, v, o = (t.to(dev) for t in (q, k, v, o))
-        want_o = FK.flash_attention_plain(q, k, v, **kw)
-        e, sh = flash_check(o, want_o, absolute=False)
-        if not sh <= 1:
-            raise AssertionError(f"training flash launch {i} != plain: max "
-                                 f"|err| {e}, {sh:.3g} of the limit; "
-                                 f"{flash_worst(o, want_o)}")
-        if sh > share:
-            where = f"{flash_worst(o, want_o)} in launch {i}"
-        err, share = max(err, e), max(share, sh)
+    err, share, where, (q, k, v, kw, want_o) = hold_launches(FK, captured,
+                                                             dev)
     shape = tuple(q.shape)
     fault = flash_check(FK.flash_attention_cuda(
         q, k, v, **kw, drop_key_tile=TRAIN_DROP_TILE), want_o, absolute=False)
-    del captured, q, k, v, o, want_o
+    del captured, q, k, v, want_o
     log(f"[train] the {per_step} flash launches of step 0 (q {shape}, "
         f"bf16, causal, on the wgmma body) = plain: max |err| {err:.3g} "
         f"(held to the elementwise limit alone), worst share "
@@ -2919,9 +3413,21 @@ def main() -> int:
     log("[slice11] " + json.dumps({"grads": train_grads, "train": trained,
                                    "device": device_side, "drill": drill}))
 
+    # 17. the MoE family at published widths: phi3.5-moe (GQA, the flash
+    # kernel on its prefill) and deepseek-v2-lite (MLA) served, phi trained
+    t0 = time.perf_counter()
+    moe_served = phase_moe_serve(
+        FK, dev, card, MOE_ARCH, MOE_SERVE_LAYERS,
+        "the card holds 12 of 32 layers with fp32 weights")
+    mla_served = phase_moe_serve(FK, dev, card, MLA_ARCH, 27, "full depth")
+    moe_trained = phase_moe_train(FK, dev, card)
+    log(f"[moe] phase in {time.perf_counter() - t0:.1f}s on {card}")
+    log("[slice12] " + json.dumps({"phi": moe_served, "deepseek": mla_served,
+                                   "train": moe_trained}))
+
     log(f"[time] all phases in {time.perf_counter() - t_start:.1f}s")
 
-    # 17. report
+    # 18. report
     src = "src/repro_torch/kernels/wfa/csrc/wfa.cu"
     kernels = []
     for name, variant in (("wfa_score", "score"), ("wfa_trace", "trace")):
@@ -3007,17 +3513,24 @@ def main() -> int:
                   "flash_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:82",
         # the main paths: the serve launcher's two prefills, the 2,048-token
-        # wave's prefill and the train launcher's forwards (12 steps)
-        "launches": serve_launches + served["launches"] + trained["launches"],
+        # wave's prefill, the train launcher's forwards (12 steps), phi's
+        # served prefill and its 3 training steps
+        "launches": (serve_launches + served["launches"] + trained["launches"]
+                     + moe_served["naive"]["launches"]
+                     + moe_trained["launches"]),
         "max_abs_err": max(max(flash_worst.values()), flash["max_abs_err"],
-                           served["max_abs_err"], trained["max_abs_err"]),
+                           served["max_abs_err"], trained["max_abs_err"],
+                           moe_served["naive"]["max_abs_err"],
+                           moe_trained["max_abs_err"]),
         # the largest share of a limit (max |err| against 3e-5 / 2e-2; in
         # bf16 also each |err| against 2 ulps of |want| plus a row floor)
         # over the grid, the served shape, the prefill launches and the
         # first training step's launches; <= 1 passes
         "worst_share_of_limit": max(flash_share["wgmma"],
                                     flash["share"], served["share"],
-                                    trained["share"]),
+                                    trained["share"],
+                                    moe_served["naive"]["share"],
+                                    moe_trained["share"]),
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         # the other bodies on the same inputs: mma.sync (the yardstick of
         # the wgmma design) and the fp32 pipes (fp32, other head dims)
@@ -3037,7 +3550,14 @@ def main() -> int:
                      "max_abs_err": trained["max_abs_err"],
                      "share": trained["share"],
                      "dropped_tile_share": trained["dropped_tile_share"],
-                     "grad_share": train_grads["share"]}})
+                     "grad_share": train_grads["share"]},
+        # phi3.5-moe (G 4): the served prefill's launches (ms a launch by
+        # CUDA events, and the bound at that shape) and its training's
+        "moe": {"prefill_launches": moe_served["naive"]["launches"],
+                "prefill_launch_ms": moe_served["naive"]["flash_launch_ms"],
+                "prefill_bound_ms": moe_served["naive"]["flash_bound_ms"],
+                "training_launches": moe_trained["launches"],
+                "training_share": moe_trained["share"]}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

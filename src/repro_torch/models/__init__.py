@@ -1,5 +1,6 @@
-"""The LM substrate's dense family (``common``, ``layers``, ``transformer``,
-``registry``): training and serving; full-sequence attention runs on the
+"""The LM substrate's dense and MoE families (``common``, ``layers``,
+``moe``, ``transformer``, ``registry``), with GQA or MLA attention:
+training and serving; full-sequence GQA attention runs on the
 flash-attention kernel."""
 from repro_torch.models.common import (SHAPES, ModelConfig,  # noqa: F401
                                        ShapeSpec, model_flops)

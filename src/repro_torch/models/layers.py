@@ -1,5 +1,5 @@
-"""Transformer building blocks of the dense GQA family: norms, RoPE, GQA
-attention and the MLP (the JAX package's ``models/layers.py``).
+"""Transformer building blocks: norms, RoPE, GQA and MLA attention and the
+MLP (the JAX package's ``models/layers.py``).
 
 Parameters are nested dicts of tensors under the JAX package's names, kept
 in ``cfg.param_dtype`` and cast to ``cfg.compute_dtype`` at each use;
@@ -9,7 +9,8 @@ attention go through the flash-attention kernel
 the place of the JAX package's ``_sdpa`` and its ``q_chunk`` scan: under
 autograd through :class:`FlashAttention`, whose backward recomputes that
 scan; decode attention over the cache stays on :func:`_sdpa`, as in the
-JAX package.
+JAX package.  MLA (deepseek-v2) runs as plain products and softmax in
+prefill, training and decode alike, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -221,6 +222,133 @@ def gqa_decode(p, h, cfg: ModelConfig, cache_k, cache_v, cache_len: int):
              <= cache_len)[None, None, None, None, :]
     out = _sdpa(q, cache_k.to(c), cache_v.to(c), valid, cfg)
     return _out(out, p["wo"], c), cache_k, cache_v
+
+
+# --------------------------------------------------------------------------
+# MLA attention (deepseek-v2): the compressed latent is the KV cache.  Its
+# query/key dim (nope + rope) differs from its value dim and one rope key
+# serves every head, so it runs as plain products and softmax, as in the
+# JAX package, not through the flash kernel.
+
+
+def init_mla(cfg: ModelConfig, gen: torch.Generator, device):
+    D, H = cfg.d_model, cfg.n_heads
+    r, rd, nd, vd = (cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.qk_nope_dim,
+                     cfg.v_head_dim)
+    s = 1.0 / math.sqrt(D)
+    pd = cfg.pdtype()
+    return {"wq": _init(gen, (D, H, nd + rd), s, pd, device),
+            "w_dkv": _init(gen, (D, r), s, pd, device),
+            "w_kr": _init(gen, (D, rd), s, pd, device),
+            "kv_norm": torch.ones((r,), dtype=pd, device=device),
+            "w_uk": _init(gen, (r, H, nd), 1.0 / math.sqrt(r), pd, device),
+            "w_uv": _init(gen, (r, H, vd), 1.0 / math.sqrt(r), pd, device),
+            "wo": _init(gen, (H, vd, D), 1.0 / math.sqrt(H * vd), pd,
+                        device)}
+
+
+def _mla_latent(p, h, cfg: ModelConfig, pos):
+    """h [B,S,D] -> (c_kv [B,S,r] after ``kv_norm``, k_rope [B,S,rd])."""
+    c = cfg.cdtype()
+    c_kv = rmsnorm({"w": p["kv_norm"]}, h @ p["w_dkv"].to(c), cfg.rms_eps)
+    k_rope = h @ p["w_kr"].to(c)
+    cos, sin = rope_cos_sin(pos, cfg.qk_rope_dim, cfg.rope_theta, c)
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def _mla_q(p, h, cfg: ModelConfig, pos):
+    """h [B,S,D] -> (q_nope [B,S,H,nd], q_rope [B,S,H,rd])."""
+    c = cfg.cdtype()
+    nd, rd = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = _proj(h, p["wq"], c)
+    cos, sin = rope_cos_sin(pos, rd, cfg.rope_theta, c)
+    return q[..., :nd], apply_rope(q[..., nd:], cos, sin)
+
+
+def mla_forward(p, h, cfg: ModelConfig, pos, *, q_chunk: int = 0,
+                return_kv=False):
+    """Full-sequence MLA (the naive, paper-formula path). h [B,S,D],
+    pos [B,S]; queries in blocks of ``q_chunk`` (default ``cfg.q_chunk``)
+    when S is longer.  ``return_kv`` also gives ``(c_kv, k_rope)`` in
+    ``cfg.cache_dtype``, the cache."""
+    c = cfg.cdtype()
+    B, S, _ = h.shape
+    q_chunk = q_chunk or cfg.q_chunk
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    c_kv, k_rope = _mla_latent(p, h, cfg, pos)
+    q_nope, q_rope = _mla_q(p, h, cfg, pos)
+    k_nope = _proj(c_kv, p["w_uk"], c)
+    v = _proj(c_kv, p["w_uv"], c)
+
+    def scores_fn(qn, qr, qpos):
+        # per-head nope part + the rope key shared by every head
+        sc = torch.einsum("bqhk,bshk->bhqs", qn, k_nope)
+        sc = sc + torch.einsum("bqhk,bsk->bhqs", qr, k_rope)
+        sc = sc * scale
+        mask = qpos[:, None, :, None] >= pos[:, None, None, :]
+        sc = torch.where(mask, sc.float(), NEG_INF)
+        w = torch.softmax(sc, dim=-1).to(c)
+        return torch.einsum("bhqs,bshk->bqhk", w, v)
+
+    if S <= q_chunk:
+        out = scores_fn(q_nope, q_rope, pos)
+    else:
+        if S % q_chunk:
+            raise ValueError(f"S {S} is not a multiple of q_chunk {q_chunk}")
+        out = torch.cat([scores_fn(q_nope[:, i:i + q_chunk],
+                                   q_rope[:, i:i + q_chunk],
+                                   pos[:, i:i + q_chunk])
+                         for i in range(0, S, q_chunk)], dim=1)
+
+    y = _out(out, p["wo"], c)
+    if return_kv:
+        cd = getattr(torch, cfg.cache_dtype)
+        return y, (c_kv.to(cd), k_rope.to(cd))
+    return y
+
+
+def mla_decode(p, h, cfg: ModelConfig, cache_ckv, cache_kr, cache_len: int):
+    """One-token MLA decode. h [B,1,D]; cache_ckv [B,Smax,r], cache_kr
+    [B,Smax,rd]; cache_len an int.  Writes the new latent and rope key into
+    row ``cache_len`` of the caches in place -> (y, cache_ckv, cache_kr).
+
+    ``cfg.mla_absorb`` False: the naive path, k_nope and v re-expanded from
+    the latent cache (the published formulas).  True: the absorbed path,
+    ``w_uk`` folded into the query and ``w_uv`` into the output, so
+    attention runs in the latent space."""
+    c = cfg.cdtype()
+    B = h.shape[0]
+    pos = torch.full((B, 1), cache_len, dtype=torch.int32, device=h.device)
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    c_kv_new, k_rope_new = _mla_latent(p, h, cfg, pos)
+    q_nope, q_rope = _mla_q(p, h, cfg, pos)
+    cache_ckv[:, cache_len:cache_len + 1] = c_kv_new.to(cache_ckv.dtype)
+    cache_kr[:, cache_len:cache_len + 1] = k_rope_new.to(cache_kr.dtype)
+    Smax = cache_ckv.shape[1]
+    valid = (torch.arange(Smax, device=h.device)
+             <= cache_len)[None, None, None, :]
+    ckv = cache_ckv.to(c)
+    kr = cache_kr.to(c)
+
+    if cfg.mla_absorb:
+        qa = torch.einsum("bqhk,rhk->bqhr", q_nope, p["w_uk"].to(c))
+        sc = torch.einsum("bqhr,bsr->bhqs", qa, ckv)
+        sc = sc + torch.einsum("bqhk,bsk->bhqs", q_rope, kr)
+        sc = torch.where(valid, sc.float() * scale, NEG_INF)
+        w = torch.softmax(sc, dim=-1).to(c)
+        ol = torch.einsum("bhqs,bsr->bqhr", w, ckv)
+        out = torch.einsum("bqhr,rhk->bqhk", ol, p["w_uv"].to(c))
+    else:
+        k_nope = _proj(ckv, p["w_uk"], c)
+        v = _proj(ckv, p["w_uv"], c)
+        sc = torch.einsum("bqhk,bshk->bhqs", q_nope, k_nope)
+        sc = sc + torch.einsum("bqhk,bsk->bhqs", q_rope, kr)
+        sc = torch.where(valid, sc.float() * scale, NEG_INF)
+        w = torch.softmax(sc, dim=-1).to(c)
+        out = torch.einsum("bhqs,bshk->bqhk", w, v)
+
+    return _out(out, p["wo"], c), cache_ckv, cache_kr
 
 
 # --------------------------------------------------------------------------

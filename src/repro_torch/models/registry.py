@@ -7,7 +7,8 @@
 returns ``device="meta"`` tensors (the counterpart of ``ShapeDtypeStruct``)
 for the inputs of the loss (``train_*``) or of prefill (``prefill_*``), and
 ``synth_batch`` a concrete seeded batch of the same shapes.  The port has
-the dense family only; the others raise ``NotImplementedError``.
+the dense and MoE families (GQA or MLA attention); the others raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ class ModelFns:
 
 
 def get_model_fns(cfg: ModelConfig) -> ModelFns:
-    TFM._dense_only(cfg)
+    TFM._ported(cfg)
     return ModelFns(init_params=TFM.init_params, loss_fn=TFM.loss_fn,
                     prefill=TFM.prefill, serve_step=TFM.serve_step,
                     init_cache=TFM.init_cache, forward=TFM.forward)
@@ -51,7 +52,7 @@ def get_model_fns(cfg: ModelConfig) -> ModelFns:
 def batch_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
     """Inputs of loss/train for ``train_*`` or of prefill for
     ``prefill_*``, as ``device="meta"`` int32 tensors."""
-    TFM._dense_only(cfg)
+    TFM._ported(cfg)
     B, S = shape.global_batch, shape.seq_len
     meta = lambda: torch.empty((B, S), dtype=torch.int32, device="meta")
     specs = {"tokens": meta()}
@@ -64,7 +65,7 @@ def synth_batch(cfg: ModelConfig, shape: ShapeSpec, seed: int = 0,
                 batch_override: Optional[int] = None) -> Dict[str, Any]:
     """Concrete synthetic batch matching batch_specs (numpy int32; the
     JAX package's numbers for the same seed)."""
-    TFM._dense_only(cfg)
+    TFM._ported(cfg)
     rng = np.random.default_rng(seed)
     B = batch_override or shape.global_batch
     S = shape.seq_len

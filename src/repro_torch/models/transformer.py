@@ -1,11 +1,14 @@
-"""Decoder-only LM of the dense family (the JAX package's
-``models/transformer.py``): init, forward, the loss and the train step,
-prefill, the KV cache and the one-token decode step.
+"""Decoder-only LM of the dense and MoE families, with GQA or MLA attention
+(the JAX package's ``models/transformer.py``): init, forward, the loss and
+the train step, prefill, the KV cache and the one-token decode step.
 
 Parameters are a nested dict of tensors under the JAX package's names, with
 ``layers`` a list of per-layer dicts (the JAX package stacks them on a
 leading axis for its ``lax.scan``; :func:`params_from_reference` unstacks).
-PyTorch runs the layers in a Python loop.  The KV cache is updated in place
+An MoE model's leading dense layers (``cfg.first_k_dense``) are the list
+``head_layers``, with an MLP of ``cfg.dense_layer_ff``; the layers of
+``layers`` hold ``moe`` in its place.  PyTorch runs the layers in a Python
+loop, head layers first.  The KV cache is updated in place
 by :func:`serve_step` (the JAX package returns a new cache), which keeps one
 copy of it on the card.
 
@@ -15,8 +18,8 @@ policies) and its attention through ``layers.FlashAttention``;
 :func:`make_train_step` differentiates :func:`loss_fn` and applies AdamW,
 updating the state's tensors in place.
 
-Other families (MoE, MLA, SSM, hybrid, enc-dec, VLM) raise
-``NotImplementedError``: they wait in ROADMAP §1's queue.
+Other families (SSM, hybrid, enc-dec, VLM) raise ``NotImplementedError``:
+they wait in ROADMAP §1's queue.
 """
 from __future__ import annotations
 
@@ -31,29 +34,41 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if (cfg.family != "dense" or cfg.attn_kind != "gqa" or cfg.is_moe
-            or cfg.mrope):
+def _ported(cfg: ModelConfig) -> None:
+    """Raise for the families the port does not run yet."""
+    if (cfg.family not in ("dense", "moe") or cfg.attn_kind not in
+            ("gqa", "mla") or cfg.mrope):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense GQA family only; "
-            f"{cfg.family}/{cfg.attn_kind} models wait in ROADMAP §1's "
-            f"queue (MoE, MLA, SSM, hybrid, enc-dec, VLM)")
+            f"{cfg.name}: the port runs the dense and MoE families (GQA or "
+            f"MLA attention); {cfg.family}/{cfg.attn_kind} models wait in "
+            f"ROADMAP §1's queue (SSM, hybrid, enc-dec, VLM)")
 
 
 # --------------------------------------------------------------------------
 # Init
 
 
-def _init_block(cfg: ModelConfig, gen: torch.Generator, device):
-    return {"ln1": L.init_rmsnorm(cfg, cfg.d_model, device),
-            "ln2": L.init_rmsnorm(cfg, cfg.d_model, device),
-            "attn": L.init_gqa(cfg, gen, device),
-            "mlp": L.init_mlp(cfg, gen, device)}
+def _init_block(cfg: ModelConfig, gen: torch.Generator, device,
+                layer_idx: int):
+    blk = {"ln1": L.init_rmsnorm(cfg, cfg.d_model, device),
+           "ln2": L.init_rmsnorm(cfg, cfg.d_model, device)}
+    if cfg.attn_kind == "mla":
+        blk["attn"] = L.init_mla(cfg, gen, device)
+    else:
+        blk["attn"] = L.init_gqa(cfg, gen, device)
+    if cfg.is_moe and layer_idx >= cfg.first_k_dense:
+        blk["moe"] = MOE.init_moe(cfg, gen, device)
+    else:
+        ff = (cfg.dense_layer_ff if (cfg.is_moe and cfg.dense_layer_ff)
+              else cfg.d_ff)
+        blk["mlp"] = L.init_mlp(cfg, gen, device, d_ff=ff)
+    return blk
 
 
 def init_params(cfg: ModelConfig, gen=0, device=None) -> Dict[str, Any]:
@@ -62,7 +77,7 @@ def init_params(cfg: ModelConfig, gen=0, device=None) -> Dict[str, Any]:
     ``cfg.param_dtype``, on ``device`` (``None``: the card).  ``gen`` is a
     ``torch.Generator`` on that device or an int seed for one; the numbers
     differ from ``jax.random``'s for the same seed."""
-    _dense_only(cfg)
+    _ported(cfg)
     dev = resolve_device(device)
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=dev).manual_seed(int(gen))
@@ -74,21 +89,27 @@ def init_params(cfg: ModelConfig, gen=0, device=None) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         params["unembed"] = {"w": L._init(gen, (D, V), 0.02, pd, dev)}
-    params["layers"] = [_init_block(cfg, gen, dev)
-                        for _ in range(cfg.n_layers)]
+    first = cfg.first_k_dense if cfg.is_moe else 0
+    if first:
+        params["head_layers"] = [_init_block(cfg, gen, dev, i)
+                                 for i in range(first)]
+    params["layers"] = [_init_block(cfg, gen, dev, i)
+                        for i in range(first, cfg.n_layers)]
     return params
 
 
 def params_from_reference(tree, device=None) -> Dict[str, Any]:
     """The JAX package's parameter tree (numpy or JAX arrays, as
     ``init_train_state(...)[0]["params"]`` gives it, ``layers`` stacked on
-    a leading axis) -> the port's parameters on ``device`` (``None``: the
-    card)."""
+    a leading axis, ``head_layers`` a list of unstacked layers) -> the
+    port's parameters on ``device`` (``None``: the card)."""
     dev = resolve_device(device)
 
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
         return torch.as_tensor(np.array(x), device=dev)
 
     def layer(tree, i):
@@ -107,31 +128,41 @@ def params_from_reference(tree, device=None) -> Dict[str, Any]:
 
 
 def _block_fwd(cfg: ModelConfig, blk, h, pos, *, return_kv=False):
+    """One block, full sequence -> (h, MoE aux loss; 0 for a dense
+    block), and with ``return_kv`` the layer's cache entries: ``(k, v)``
+    for GQA, ``(c_kv, k_rope)`` for MLA."""
     a = L.rmsnorm(blk["ln1"], h, cfg.rms_eps)
-    y = L.gqa_forward(blk["attn"], a, cfg, pos, return_kv=return_kv)
+    attn = L.mla_forward if cfg.attn_kind == "mla" else L.gqa_forward
+    y = attn(blk["attn"], a, cfg, pos, return_kv=return_kv)
     if return_kv:
         y, kv = y
     h = h + y
     m = L.rmsnorm(blk["ln2"], h, cfg.rms_eps)
-    h = h + L.mlp_forward(blk["mlp"], m, cfg)
-    return (h, kv) if return_kv else h
+    if "moe" in blk:
+        y, aux = MOE.moe_forward(blk["moe"], m, cfg)
+    else:
+        y = L.mlp_forward(blk["mlp"], m, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    h = h + y
+    return (h, aux, kv) if return_kv else (h, aux)
 
 
 def _save_dots(ctx, op, *args, **kwargs):
     """The ``"dots"`` policy: keep the outputs of the products without batch
-    dimensions (the projections, ``aten.mm``; the JAX package's
-    ``dots_with_no_batch_dims_saveable``), recompute the rest (attention
-    with its kernel launch, norms, RoPE, the activation)."""
+    dimensions (the projections and the MoE router, ``aten.mm``; the JAX
+    package's ``dots_with_no_batch_dims_saveable``), recompute the rest
+    (attention with its kernel launch, the batched expert and MLA score
+    products, norms, RoPE, the activation)."""
     if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _block_remat(cfg: ModelConfig, blk, h, pos):
-    """One block under ``cfg.remat_policy``: ``"everything"`` keeps every
-    activation; ``"nothing"`` recomputes the whole block in the backward;
-    ``"dots"`` recomputes all but the projections.  Blocks draw no random
-    numbers, so no RNG state is kept."""
+    """One block under ``cfg.remat_policy`` -> (h, aux): ``"everything"``
+    keeps every activation; ``"nothing"`` recomputes the whole block in the
+    backward; ``"dots"`` recomputes all but the projections.  Blocks draw
+    no random numbers, so no RNG state is kept."""
     if cfg.remat_policy == "everything" or not torch.is_grad_enabled():
         return _block_fwd(cfg, blk, h, pos)
     kw = {}
@@ -166,15 +197,20 @@ def _positions(tokens):
 
 def forward(params, cfg: ModelConfig, tokens):
     """Full forward. tokens [B,S] -> (logits [B,S,Vp] in the compute dtype,
-    MoE aux loss 0)."""
-    _dense_only(cfg)
+    the MoE aux loss summed over the layers, fp32).  Head layers run first
+    and outside remat, as in the JAX package."""
+    _ported(cfg)
     pos = _positions(tokens)
     h = _embed(params, cfg, tokens)
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for blk in params.get("head_layers", []):
+        h, aux = _block_fwd(cfg, blk, h, pos)
+        aux_total = aux_total + aux
     for blk in params["layers"]:
-        h = _block_remat(cfg, blk, h, pos)
+        h, aux = _block_remat(cfg, blk, h, pos)
+        aux_total = aux_total + aux
     h = L.rmsnorm(params["final_norm"], h, cfg.rms_eps)
-    return (_logits(params, cfg, h),
-            torch.zeros((), dtype=torch.float32, device=h.device))
+    return _logits(params, cfg, h), aux_total
 
 
 # --------------------------------------------------------------------------
@@ -183,8 +219,9 @@ def forward(params, cfg: ModelConfig, tokens):
 
 def loss_fn(params, cfg: ModelConfig, batch):
     """Mean next-token cross-entropy over ``targets >= 0``, from fp32
-    logits (log-sum-exp less the gold logit), as the JAX package's."""
-    logits, _ = forward(params, cfg, batch["tokens"])
+    logits (log-sum-exp less the gold logit), plus ``router_aux_coef`` x
+    the aux loss / n_layers for MoE, as the JAX package's."""
+    logits, aux = forward(params, cfg, batch["tokens"])
     logits = logits.float()
     targets = batch["targets"]
     mask = (targets >= 0).float()
@@ -192,7 +229,10 @@ def loss_fn(params, cfg: ModelConfig, batch):
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
     nll = (logz - gold) * mask
-    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    loss = torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    if cfg.is_moe:
+        loss = loss + cfg.router_aux_coef * aux / max(1, cfg.n_layers)
+    return loss
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, n_micro: int,
@@ -262,31 +302,52 @@ def train_state(params):
 # KV cache, decode and prefill
 
 
+def _cache_names(cfg: ModelConfig):
+    return ("ckv", "kr") if cfg.attn_kind == "mla" else ("k", "v")
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
-    """Zero K/V caches [L, batch, max_seq, KV, dh] in ``cfg.cache_dtype``."""
-    _dense_only(cfg)
+    """Zero caches in ``cfg.cache_dtype``, one row per layer (head layers
+    first): K/V [L, batch, max_seq, KV, dh] for GQA; for MLA the latent
+    ``ckv`` [L, batch, max_seq, r] and the rope key ``kr`` [L, batch,
+    max_seq, rd]."""
+    _ported(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
     cd = getattr(torch, cfg.cache_dtype)
-    return {"k": torch.zeros(shape, dtype=cd, device=dev),
-            "v": torch.zeros(shape, dtype=cd, device=dev)}
+    L_, B = cfg.n_layers, batch
+    if cfg.attn_kind == "mla":
+        shapes = ((L_, B, max_seq, cfg.kv_lora_rank),
+                  (L_, B, max_seq, cfg.qk_rope_dim))
+    else:
+        shapes = ((L_, B, max_seq, cfg.n_kv_heads, cfg.d_head),) * 2
+    return {n: torch.zeros(s, dtype=cd, device=dev)
+            for n, s in zip(_cache_names(cfg), shapes)}
 
 
-def _block_decode(cfg: ModelConfig, blk, h, ck, cv, cache_len: int):
+def _block_decode(cfg: ModelConfig, blk, h, c0, c1, cache_len: int):
+    """One block, one token; ``c0, c1`` the layer's cache rows (K, V or
+    the latent and the rope key), written in place."""
     a = L.rmsnorm(blk["ln1"], h, cfg.rms_eps)
-    y, _, _ = L.gqa_decode(blk["attn"], a, cfg, ck, cv, cache_len)
+    attn = L.mla_decode if cfg.attn_kind == "mla" else L.gqa_decode
+    y, _, _ = attn(blk["attn"], a, cfg, c0, c1, cache_len)
     h = h + y
     m = L.rmsnorm(blk["ln2"], h, cfg.rms_eps)
+    if "moe" in blk:
+        return h + MOE.moe_forward(blk["moe"], m, cfg)[0]
     return h + L.mlp_forward(blk["mlp"], m, cfg)
 
 
 def serve_step(params, cfg: ModelConfig, cache, token, cache_len: int):
     """token [B] int; cache_len an int -> (logits [B,Vp] fp32, cache), the
-    new K/V written into row ``cache_len`` of ``cache`` in place."""
-    _dense_only(cfg)
+    new cache entries written into row ``cache_len`` of ``cache`` in place.
+    Head layers take cache rows 0 .. n_head - 1, the stacked layers the
+    rest; MoE routes the B tokens of the step."""
+    _ported(cfg)
     h = _embed(params, cfg, token[:, None])
-    for i, blk in enumerate(params["layers"]):
-        h = _block_decode(cfg, blk, h, cache["k"][i], cache["v"][i],
+    n0, n1 = _cache_names(cfg)
+    layers = params.get("head_layers", []) + params["layers"]
+    for i, blk in enumerate(layers):
+        h = _block_decode(cfg, blk, h, cache[n0][i], cache[n1][i],
                           int(cache_len))
     h = L.rmsnorm(params["final_norm"], h, cfg.rms_eps)
     return _logits(params, cfg, h)[:, 0].float(), cache
@@ -297,15 +358,17 @@ def prefill(params, cfg: ModelConfig, tokens):
 
     The logits are those of the last position, S - 1, for every row: a
     shorter prompt padded at the end gets the logits of a pad position, as
-    in the JAX package."""
-    _dense_only(cfg)
+    in the JAX package.  Head layers first; the cache as
+    :func:`init_cache` lays it out, S rows long."""
+    _ported(cfg)
     pos = _positions(tokens)
     h = _embed(params, cfg, tokens)
-    ks, vs = [], []
-    for blk in params["layers"]:
-        h, (k, v) = _block_fwd(cfg, blk, h, pos, return_kv=True)
-        ks.append(k)
-        vs.append(v)
+    kvs = []
+    for blk in params.get("head_layers", []) + params["layers"]:
+        h, _, kv = _block_fwd(cfg, blk, h, pos, return_kv=True)
+        kvs.append(kv)
     h = L.rmsnorm(params["final_norm"], h, cfg.rms_eps)
     logits = _logits(params, cfg, h[:, -1:, :])
-    return logits[:, 0].float(), {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return logits[:, 0].float(), {
+        n: torch.stack([kv[j] for kv in kvs])
+        for j, n in enumerate(_cache_names(cfg))}
