@@ -189,7 +189,29 @@ Phases (each raises on failure, and the script then exits non-zero):
    finite loss that holds the aux term, the router and every expert moved
    with a gradient, each flash launch of step 0 held against the plain
    version; step ms, tokens/s, peak;
-18. report — a ``kernels`` JSON line, the card's name and power limit, and
+18. the SSM and hybrid families — (a) mamba2-780m whole at published
+   widths, seeded fp32 weights: ``serve.main(["--arch", "mamba2-780m"])``
+   and one ``BatchServer`` wave of 8 x 2,048 tokens, 32 new, through
+   :func:`serve_wave` (no flash launch: the model has no attention);
+   prefill and decode tokens/s, the peak; for 2 requests the logits of
+   prefill (the chunked SSD) + decode (the recurrence) against one
+   ``forward`` over prompt, decoded tokens and filler up to a multiple of
+   the SSD chunk (:func:`ssm_e2e`), in bf16 and in fp32 within
+   SSM_E2E_TOL, and a decode that drops the SSM state (the planted fault)
+   past them; one Mamba2 layer profiled at the prefill shape; (b)
+   zamba2-7b whole
+   (81 Mamba2 layers, the shared GQA + MLP block after every 6th: 13
+   applications), the same: 13 flash launches a prefill at bf16, dh 112,
+   G 1, all on the fp32-pipe body, each held against the plain version to
+   the limits, each timed by CUDA events; that launch
+   shape alone: the body, the plain version and
+   ``scaled_dot_product_attention`` timed, with the bound; (c)
+   ``launch.train.main`` on mamba2 whole (8 x 1,024 tokens, 6 steps) and
+   zamba2 at 12 layers (2 x 1,024 tokens, 3 steps), under ``"dots"``: finite
+   losses, mamba2's falling; every leaf of zamba2's SSM layers and shared
+   block moved with a gradient, its step-0 flash launches held against the
+   plain version; step ms, tokens/s, peak;
+19. report — a ``kernels`` JSON line, the card's name and power limit, and
    the final ``{"ok": true, ...}`` line.
 
 It needs one card and exits non-zero without one.  It imports nothing of
@@ -339,6 +361,33 @@ MOE_TRAIN_STEPS = 3
 # and top k (printed: on the H100, 0.06% of phi's pairs, 16 experts top 2;
 # 7.8% of deepseek's, 64 top 6).
 MOE_ROUTER_TOL = 2 ** -2
+
+
+# phase 18, the SSM and hybrid families at published widths with fp32
+# weights (configs/mamba2_780m.py, configs/zamba2_7b.py), both served whole
+# (2.9 and 25.1 GiB).  mamba2 trains whole (16 B a parameter of training
+# state: 12.5 GB); zamba2's 6.75 B parameters would take 108 GB, so it
+# trains at 12 of its 81 layers (2 shared-block applications, 1.37 B
+# parameters, about 22 GB).  zamba2's shared attention (bf16, dh 112, 32
+# heads on 32) runs the flash kernel's fp32-pipe body: the wgmma body takes
+# dh 64 and 128 only.
+SSM_ARCH = "mamba2-780m"
+HYBRID_ARCH = "zamba2-7b"
+HYBRID_FLASH_BODY = "fp32_pipes"
+SSM_TRAIN_STEPS = 6
+HYBRID_TRAIN_LAYERS = 12
+HYBRID_TRAIN_BATCH = 2
+HYBRID_TRAIN_STEPS = 3
+# phase 18's prefill + decode against one forward (ssm_e2e) runs in bf16
+# and fp32, each within its bounds, and again with a planted fault (each
+# decode step given a zeroed SSM state), which must exceed every bound.
+# Max / mean |dlogit| on the H100, sound: mamba2-780m bf16 0.152 / 0.0204,
+# zamba2-7b 0.328 / 0.0451, fp32 at most 9.9e-5 / 1.3e-5 (the chunked SSD
+# and the recurrence are one function up to the order of sums); the fault
+# in either dtype at least 4.75 / 0.753.  The bf16 bounds sit about 4x from
+# both sides, the fp32 ones about 10x above the sound readings.
+SSM_E2E_TOL = {"bfloat16": {"max": 1.25, "mean": 0.18},
+               "float32": {"max": 1e-3, "mean": 1e-4}}
 
 
 def log(*a):
@@ -1832,11 +1881,12 @@ def phase_serve_defaults(FK):
     return launches
 
 
-def serve_wave(FK, dev, cfg, params, prompts, *, flash_layers, moe=None):
+def serve_wave(FK, dev, cfg, params, prompts, *, flash_layers, moe=None,
+               body="wgmma"):
     """One BatchServer wave of ``prompts`` (equal lengths), LM_NEW new
     tokens each, max_seq LM_MAX_SEQ, on the card.  The prefill must launch
-    the flash kernel ``flash_layers`` times, all on the wgmma body; each
-    launch is held against the plain version on its own inputs.  With
+    the flash kernel ``flash_layers`` times, all on ``body``; each launch
+    is held against the plain version on its own inputs.  With
     ``moe`` (the port's ``models.moe``), each MoE call of the prefill is
     timed by CUDA events and every MoE call counts its dropped slots.  ->
     dict: the outputs, the logits of rows 0 .. LM_E2E_ROWS - 1 (prefill,
@@ -1944,9 +1994,9 @@ def serve_wave(FK, dev, cfg, params, prompts, *, flash_layers, moe=None):
     if launches != flash_layers or len(captured) != flash_layers:
         raise AssertionError(f"the prefill launched the flash kernel "
                              f"{launches} times, not {flash_layers}")
-    if FK.PATH_LAUNCHES["wgmma"] != launches:
+    if FK.PATH_LAUNCHES[body] != launches:
         raise AssertionError(f"the prefill ran the flash bodies "
-                             f"{FK.PATH_LAUNCHES}, not all on wgmma")
+                             f"{FK.PATH_LAUNCHES}, not all on {body}")
     if any(len(o) != plen + LM_NEW for o in outs):
         raise AssertionError(f"lengths {[len(o) for o in outs]}")
     n_steps = len(logits) - 1
@@ -1982,9 +2032,11 @@ def serve_wave(FK, dev, cfg, params, prompts, *, flash_layers, moe=None):
     r.update(max_abs_err=err, share=share, where=where)
     if captured:
         (B, S, H, dh), KV = captured[0][0].shape, captured[0][1].shape[2]
+        each = [ev[0].elapsed_time(ev[1]) for *_, ev in captured]
         r.update(q_shape=(B, S, H, dh), flash_launch_ms=r["flash_s"] * 1e3
-                 / len(captured), flash_bound_ms=attention_bound(
-                     B, S, S, H, KV, dh, True)[0])
+                 / len(captured), flash_ms_range=(min(each), max(each)),
+                 flash_bound_ms=attention_bound(B, S, S, H, KV, dh, True)[0])
+    r.update(body=body)
     return r
 
 
@@ -1999,13 +2051,14 @@ def log_wave(name, r, card):
         f"{r['sdpa_s']:.4f}s of it), wall {r['wall']:.2f}s, peak memory "
         f"{r['peak_gib']:.2f} GiB on {card}")
     if r["launches"]:
+        lo, hi = r["flash_ms_range"]
         log(f"[serve] {name}: {r['launches']} prefill flash launches (q "
-            f"{r['q_shape']}, all on the wgmma body; "
-            f"{r['flash_launch_ms']:.4f} ms a launch against a bound of "
-            f"{r['flash_bound_ms']:.4f} ms) = plain: max |err| "
-            f"{r['max_abs_err']:.3g} (tol 2e-2), worst share "
-            f"{r['share']:.3f} of the limits; of the elementwise limit "
-            f"alone {r['where']}")
+            f"{r['q_shape']}, all on the {r['body']} body; "
+            f"{r['flash_launch_ms']:.4f} ms a launch ({lo:.4f}-{hi:.4f}) "
+            f"against a bound of {r['flash_bound_ms']:.4f} ms) = plain: max "
+            f"|err| {r['max_abs_err']:.3g} (tol 2e-2), worst share "
+            f"{r['share']:.3f} of the limits; of the elementwise limit alone "
+            f"{r['where']}")
 
 
 def e2e_check(name, dec, ref):
@@ -2189,7 +2242,7 @@ def free_card():
     torch.cuda.empty_cache()
 
 
-def moe_params(cfg, dev, seed):
+def seeded_params(cfg, dev, seed):
     """Seeded random weights on the card -> (params, seconds, GiB)."""
     import torch
     from repro_torch.models import transformer as TFM
@@ -2222,7 +2275,7 @@ def phase_moe_serve(FK, dev, card, arch, n_layers, why):
     from repro_torch.models import moe as MOE
 
     cfg = get_config(arch).replace(n_layers=n_layers)
-    params, init_s, gib = moe_params(cfg, dev, 17)
+    params, init_s, gib = seeded_params(cfg, dev, 17)
     rng = np.random.default_rng(18)
     prompts = [rng.integers(0, cfg.vocab_size, size=LM_PROMPT)
                .astype(np.int32) for _ in range(LM_BATCH)]
@@ -2257,8 +2310,9 @@ def phase_moe_serve(FK, dev, card, arch, n_layers, why):
                       max_seq=LM_MAX_SEQ)
         check_moe_e2e(name, chk)
         if not absorb:
-            top, total = moe_layer_profile(MOE, c, params["layers"][-1]["moe"],
-                                           dev)
+            p = params["layers"][-1]["moe"]
+            top, total = layer_profile(lambda m: MOE.moe_forward(p, m, c),
+                                       c, dev, 19)
             log(f"[moe] {arch}: one MoE layer alone at the prefill shape "
                 f"({LM_BATCH} x {LM_PROMPT} tokens of unit RMS, torch."
                 f"profiler): {total:.3f} ms of kernels; the largest: "
@@ -2276,21 +2330,22 @@ def phase_moe_serve(FK, dev, card, arch, n_layers, why):
     return out
 
 
-def moe_layer_profile(MOE, cfg, p, dev):
-    """One MoE layer's call at the prefill shape (LM_BATCH x LM_PROMPT
-    tokens, random of unit RMS) under ``torch.profiler`` -> (the 6 kernels
-    with the most device time [(name, ms)], total device ms)."""
+def layer_profile(fn, cfg, dev, seed):
+    """``fn(x)``, one layer's call, at the prefill shape (LM_BATCH x
+    LM_PROMPT tokens, random of unit RMS from ``seed``) under
+    ``torch.profiler`` -> (the 6 kernels with the most device time [(name,
+    ms)], total device ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    gen = torch.Generator(device=dev).manual_seed(19)
-    m = torch.randn((LM_BATCH, LM_PROMPT, cfg.d_model), generator=gen,
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((LM_BATCH, LM_PROMPT, cfg.d_model), generator=gen,
                     device=dev).to(cfg.cdtype())
     with torch.inference_mode():
-        MOE.moe_forward(p, m, cfg)
+        fn(x)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            MOE.moe_forward(p, m, cfg)
+            fn(x)
             torch.cuda.synchronize()
     rows = sorted(((e.key[:60], e.self_device_time_total / 1e3)
                    for e in prof.key_averages()
@@ -2302,8 +2357,8 @@ def moe_layer_profile(MOE, cfg, p, dev):
 def hold_launches(FK, captured, dev):
     """Each captured flash launch ``(q, k, v, o, kw)`` (host copies)
     against the plain version on its own inputs, to the elementwise bf16
-    limit alone -> (max |err|, worst share, where, the last launch's
-    inputs and plain output on the card)."""
+    limit alone -> (max |err|, worst share, where, the last launch's inputs
+    and plain output on the card)."""
     err = share = 0.0
     where = ""
     for i, (q, k, v, o, kw) in enumerate(captured):
@@ -2331,63 +2386,24 @@ def phase_moe_train(FK, dev, card):
     first moment; every layer's forward launches the flash kernel on the
     wgmma body, each launch of the first step held against the plain
     version."""
-    import statistics
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenStreamSpec, batch_for_step
-    from repro_torch.launch import train as T
     from repro_torch.models import transformer as TFM
 
-    free_card()
     cfg = get_config(MOE_ARCH).replace(n_layers=MOE_TRAIN_LAYERS)
     forwards = 1 if cfg.remat_policy == "everything" else 2
     per_step = cfg.n_layers * forwards
-    launch, captured, kept = FK.flash_attention_cuda, [], {}
-
-    def capturing(q, k, v, **kw):
-        o = launch(q, k, v, **kw)
-        if len(captured) < per_step:
-            captured.append((*(t.cpu() for t in (q, k, v, o)), kw))
-        return o
-
-    def keeping(*a, **kw):
-        kept["state"], kept["losses"] = real_train(*a, **kw)
-        return kept["state"], kept["losses"]
-
-    real_get, real_train = T.get_config, T.train
-    T.get_config = lambda name: real_get(name).replace(
-        n_layers=MOE_TRAIN_LAYERS)
-    T.train = keeping
-    FK.flash_attention_cuda = capturing
-    FK.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    try:
-        rc, rows = run_train_main(
-            ["--arch", MOE_ARCH, "--global-batch", str(MOE_TRAIN_BATCH),
-             "--seq", str(TRAIN_SEQ), "--steps", str(MOE_TRAIN_STEPS),
-             "--log-every", "1"])
-    finally:
-        T.get_config, T.train = real_get, real_train
-        FK.flash_attention_cuda = launch
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    launches = dict(FK.PATH_LAUNCHES)
-    want = per_step * MOE_TRAIN_STEPS
-    if rc != 0 or [r[0] for r in rows] != list(range(MOE_TRAIN_STEPS)):
-        raise AssertionError(f"train.main: rc {rc}, steps "
-                             f"{[r[0] for r in rows]}")
+    run = train_main_run(FK, MOE_ARCH, MOE_TRAIN_BATCH, MOE_TRAIN_STEPS,
+                         MOE_TRAIN_LAYERS, capture=per_step)
+    launches, want = dict(FK.PATH_LAUNCHES), per_step * MOE_TRAIN_STEPS
     if launches["wgmma"] != want or FK.LAUNCHES["flash_attention"] != want:
         raise AssertionError(f"{MOE_TRAIN_STEPS} steps launched the flash "
                              f"bodies {launches}, not wgmma {want} times")
-    losses = [r[1] for r in rows]
-    if not all(x == x and abs(x) < float("inf") for x in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
-    step_ms = statistics.median(r[2] for r in rows[1:])
-    tokens = MOE_TRAIN_BATCH * TRAIN_SEQ
+    losses, step_ms, captured = run["losses"], run["step_ms"], run["captured"]
 
     # the aux term is in the loss, on the final weights and step 0's batch
-    state = kept.pop("state")
+    state = run.pop("state")
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch_for_step(
         TokenStreamSpec(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                         global_batch=MOE_TRAIN_BATCH, seed=0), 0).items()}
@@ -2425,20 +2441,319 @@ def phase_moe_train(FK, dev, card):
         f"{get_config(MOE_ARCH).n_layers} layers ({cfg.param_count():,} "
         f"parameters; fp32 weights, gradients and AdamW moments), "
         f"{MOE_TRAIN_BATCH} x {TRAIN_SEQ} tokens, {MOE_TRAIN_STEPS} steps "
-        f"in {wall:.1f}s: loss {losses[0]:.4f} -> {losses[-1]:.4f} (aux "
-        f"term {aux_term:.5f} on the final weights); step {step_ms:.1f} ms "
-        f"(median of steps 1-{MOE_TRAIN_STEPS - 1}), "
-        f"{tokens / (step_ms / 1e3):,.0f} tokens/s, peak memory "
-        f"{peak / 2**30:.2f} GiB; flash launches {launches['wgmma']} on "
+        f"in {run['wall_s']:.1f}s: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(aux term {aux_term:.5f} on the final weights); step "
+        f"{step_ms:.1f} ms (median of steps 1-{MOE_TRAIN_STEPS - 1}), "
+        f"{run['tokens_per_s']:,.0f} tokens/s, peak memory "
+        f"{run['peak_gib']:.2f} GiB; flash launches {launches['wgmma']} on "
         f"wgmma; router and experts moved with a gradient (columns or "
         f"experts per layer): {moved}; card: {card}")
     log(f"[moe] train: the {per_step} flash launches of step 0 (q {shape}, "
         f"bf16, causal) = plain: max |err| {err:.3g}, worst share "
         f"{share:.3f} of the elementwise limit, {where}")
     return dict(launches=launches["wgmma"], step_ms=step_ms,
-                tokens_per_s=tokens / (step_ms / 1e3), peak_gib=peak / 2**30,
+                tokens_per_s=run["tokens_per_s"], peak_gib=run["peak_gib"],
                 losses=losses, aux_term=aux_term, max_abs_err=err,
                 share=share)
+
+
+def ssm_e2e(cfg, params, prompts, new, device, served=None,
+            drop_state=False):
+    """Prefill + decode against one forward for an SSM or hybrid model.
+    The logits of a wave of ``prompts`` (equal lengths; served here, or
+    ``served`` = the outputs and the logits of a wave already served: the
+    prefill's last position, then each decode step) against one
+    ``forward`` over the prompt and the tokens decoded from it, with filler
+    (token 0) at the end up to a multiple of ``cfg.ssm_chunk``: the SSD
+    keeps its chunk rule, and being causal, the filler moves no compared
+    position.  ``drop_state`` plants a fault for the check's control: each
+    decode step gets a zeroed SSM state in place of the one carried from
+    the prefill.  -> dict: max and mean |logit difference|, the logits'
+    std, greedy agreement, positions compared, the padded length, finite."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import BatchServer
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as TFM
+
+    S = len(prompts[0])
+    if served is None:
+        server = BatchServer(cfg, params, max_seq=S + new + 1,
+                             batch=len(prompts), device=device)
+        logits = []
+
+        def keep(fn):
+            return lambda *a: (lambda out: logits.append(out[0]) or out)(
+                fn(*a))
+        server._prefill = keep(server._prefill)
+        server._step = keep(server._step)
+        real = SSM.ssm_decode
+        if drop_state:
+            SSM.ssm_decode = lambda p, h, c, s, cv: real(
+                p, h, c, torch.zeros_like(s), cv)
+        try:
+            outs = server.generate(prompts, max_new=new)
+        finally:
+            SSM.ssm_decode = real
+    else:
+        outs, logits = served
+    rows, n = logits[0].shape[0], S + len(logits) - 1
+    Q = cfg.ssm_chunk
+    padded = n if n <= Q else -(-n // Q) * Q
+    seq = np.zeros((rows, padded), np.int64)
+    seq[:, :n] = np.stack([o[:n] for o in outs[:rows]])
+    with torch.inference_mode():
+        full, _ = TFM.forward(params, cfg, torch.as_tensor(seq,
+                                                           device=device))
+    ref = full[:, S - 1:S - 1 + len(logits)].float()
+    dec = torch.stack(logits, dim=1).float()
+    diff = (dec - ref).abs()
+    return dict(max=float(diff.max()), mean=float(diff.mean()),
+                logit_std=float(ref.std()), positions=len(logits),
+                padded_to=padded, argmax_agree=float(
+                    (dec.argmax(-1) == ref.argmax(-1)).float().mean()),
+                finite=bool(torch.isfinite(dec).all()))
+
+
+def check_ssm_e2e(name, chks, tol, card="", fault=False):
+    """Log the runs of :func:`ssm_e2e`, one a dtype of ``tol`` (``chks[dt]``
+    against the bounds ``tol[dt]``); raise unless each is finite and within
+    its bounds, or, for a planted ``fault``, unless each exceeds both."""
+    def line(c, lim):
+        return (f"max |dlogit| {c['max']:.4g} (tol {lim['max']:.4g}), mean "
+                f"{c['mean']:.4g} (tol {lim['mean']:.4g}), logit std "
+                f"{c['logit_std']:.3f}, greedy tokens agree on "
+                f"{100 * c['argmax_agree']:.1f}%")
+    c0 = chks["bfloat16"]
+    log(f"[ssm] {name} prefill + decode"
+        + (" without the SSM state (planted fault)" if fault else "")
+        + f" vs one forward (prompt, decoded tokens, filler to "
+        f"{c0['padded_to']}), {LM_E2E_ROWS} requests x {c0['positions']} "
+        f"positions: " + "; ".join(f"{dt} {line(chks[dt], lim)}"
+                                   for dt, lim in tol.items())
+        + f"; card: {card}")
+    for dt, lim in tol.items():
+        c = chks[dt]
+        within = [c[k] <= lim[k] for k in ("max", "mean")]
+        if fault and any(within):
+            raise AssertionError(f"{name}: a decode without the SSM state "
+                                 f"passed a {dt} bound: {c} against {lim}")
+        if not fault and not (all(within) and c["finite"]):
+            raise AssertionError(f"{name}: {dt} prefill + decode logits != "
+                                 f"forward: {c} against {lim}")
+
+
+def phase_hybrid_flash(FK, fops, dev, shape, card):
+    """Phase 18b's flash launch shape alone (bf16, causal, random inputs
+    of scale 0.5): the default body (the fp32 pipes at dh 112) against the
+    plain version, then it, the plain version and
+    ``scaled_dot_product_attention`` (timed only) in two turns, beside the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    B, S, H, KV, dh = shape
+    gen = torch.Generator(device=dev).manual_seed(112)
+    rnd = lambda *s: (torch.randn(s, generator=gen, device=dev)
+                      * 0.5).to(torch.bfloat16)
+    q, k, v = rnd(B, S, H, dh), rnd(B, S, KV, dh), rnd(B, S, KV, dh)
+    outs, want = flash_pair(FK, fops, q, k, v, True)
+    (body, got), = outs.items()
+    err, share = flash_check(got, want)
+    if not share <= 1:
+        raise AssertionError(f"flash at {shape} != plain: {err}, {share}")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    runs = {body: (lambda: FK.flash_attention_cuda(q, k, v, causal=True), 5),
+            "plain": (lambda: FK.flash_attention_plain(q, k, v, causal=True),
+                      2),
+            "library": (lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), 20)}
+    turns = {name: [] for name in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for name in order:
+            turns[name].append(cuda_ms(*runs[name]))
+    ms = {name: sum(t) / len(t) for name, t in turns.items()}
+    bound_ms, bound_by = attention_bound(B, S, S, H, KV, dh, True)
+    log(f"[ssm] flash at zamba2's shape B {B} S {S} H {H} KV {KV} dh {dh} "
+        f"bf16 causal, default body {body}: = plain, max |err| {err:.3g}, "
+        f"{share:.3f} of the limits; bound {bound_ms:.4f} ms ({bound_by}); "
+        f"ms (two turns): " + "; ".join(
+            f"{n} {ms[n]:.4f} ({', '.join(f'{t:.4f}' for t in turns[n])})"
+            for n in runs)
+        + f"; {body} at {100 * bound_ms / ms[body]:.2f}% of the bound, "
+        f"{ms[body] / ms['library']:.2f}x the library call's time; card: "
+        f"{card}")
+    return dict(body=body, ms=ms[body], plain_ms=ms["plain"],
+                library_ms=ms["library"], bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=err, share=share)
+
+
+def phase_ssm_serve(FK, fops, dev, card, arch):
+    """Phase 18a / 18b: an SSM or hybrid model whole at published widths,
+    seeded fp32 weights.  ``serve.main(["--arch", arch])`` (the launcher's
+    defaults, two waves); then one BatchServer wave of LM_BATCH x
+    LM_PROMPT tokens, LM_NEW new (after a cold wave of the same prompts, 2
+    new tokens, timed apart): prefill and decode tokens/s, the peak.  A
+    hybrid's shared block launches the flash kernel once per application
+    in each prefill, all on HYBRID_FLASH_BODY, each launch held against the
+    plain version; an SSM model launches none.  Then prefill + decode
+    logits of LM_E2E_ROWS requests against one forward (:func:`ssm_e2e`),
+    in bf16 and again in fp32, within SSM_E2E_TOL, and with the planted
+    fault past it (:func:`check_ssm_e2e`); one Mamba2 layer profiled at the
+    prefill shape.  A hybrid's flash launch shape is then timed alone
+    (:func:`phase_hybrid_flash`)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.serve import BatchServer
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as TFM
+
+    cfg = get_config(arch)
+    apps = TFM.n_shared_apps(cfg)
+    free_card()
+    FK.reset_launches()
+    t0 = time.perf_counter()
+    rc = serve.main(["--arch", arch])
+    wall = time.perf_counter() - t0
+    main_launches = FK.LAUNCHES["flash_attention"]
+    if (rc != 0 or main_launches != 2 * apps
+            or FK.PATH_LAUNCHES[HYBRID_FLASH_BODY] != main_launches):
+        raise AssertionError(f"serve.main {arch}: rc {rc}, flash bodies "
+                             f"{FK.PATH_LAUNCHES}, not {2 * apps} on "
+                             f"{HYBRID_FLASH_BODY}")
+    log(f"[ssm] serve.main --arch {arch} (2 waves, weights made on the card "
+        f"included) in {wall:.1f}s; flash launches {main_launches}")
+
+    params, init_s, gib = seeded_params(cfg, dev, 23)
+    rng = np.random.default_rng(24)
+    prompts = [rng.integers(0, cfg.vocab_size, size=LM_PROMPT)
+               .astype(np.int32) for _ in range(LM_BATCH)]
+    t0 = time.perf_counter()
+    BatchServer(cfg, params, max_seq=LM_MAX_SEQ, batch=LM_BATCH,
+                device=dev).generate(prompts, max_new=2)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    free_card()
+    log(f"[ssm] {arch}: {cfg.n_layers} layers ({apps} shared-block "
+        f"applications), {cfg.param_count():,} parameters, {gib:.2f} GiB of "
+        f"fp32 weights made on the card in {init_s:.1f}s; a first wave of "
+        f"the same prompts, 2 new tokens, {cold:.2f}s")
+    r = serve_wave(FK, dev, cfg, params, prompts, flash_layers=apps,
+                   body=HYBRID_FLASH_BODY)
+    log_wave(arch, r, card)
+    cfgs = {"bfloat16": cfg, "float32": cfg.replace(
+        compute_dtype="float32", cache_dtype="float32")}
+    chks = {dt: ssm_e2e(c, params, prompts[:LM_E2E_ROWS], LM_NEW, dev,
+                        served=(r["outs"], r["logits"]) if c is cfg else None)
+            for dt, c in cfgs.items()}
+    check_ssm_e2e(arch, chks, SSM_E2E_TOL, card)
+    bad = {dt: ssm_e2e(c, params, prompts[:LM_E2E_ROWS], LM_NEW, dev,
+                       drop_state=True) for dt, c in cfgs.items()}
+    check_ssm_e2e(arch, bad, SSM_E2E_TOL, card, fault=True)
+    p = params["layers"][-1]["ssm"]
+    top, total = layer_profile(lambda h: SSM.ssm_forward(p, h, cfg), cfg,
+                               dev, 25)
+    log(f"[ssm] {arch}: one Mamba2 layer alone at the prefill shape "
+        f"({LM_BATCH} x {LM_PROMPT} tokens of unit RMS, torch.profiler): "
+        f"{total:.3f} ms of kernels; the largest: "
+        + "; ".join(f"{k} {v:.3f} ms" for k, v in top))
+    out = {"params": cfg.param_count(), "main_launches": main_launches,
+           "layer_ms": total,
+           **{f"e2e{'_fault' if b else ''}": {
+               dt: {k: c[dt][k] for k in ("max", "mean", "logit_std")}
+               for dt in c} for b, c in ((False, chks), (True, bad))},
+           **{k: r.get(k) for k in ("prefill_tps", "decode_tps", "peak_gib",
+                                    "launches", "max_abs_err", "share",
+                                    "flash_launch_ms", "flash_ms_range",
+                                    "flash_bound_ms")}}
+    del params, r
+    free_card()
+    if apps:
+        out["flash"] = phase_hybrid_flash(
+            FK, fops, dev, (LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads,
+                            cfg.d_head), card)
+    return out
+
+
+def phase_ssm_train(FK, dev, card):
+    """Phase 18c: ``launch.train.main`` on mamba2-780m whole (B TRAIN_BATCH
+    x S TRAIN_SEQ, SSM_TRAIN_STEPS steps) and on zamba2-7b at
+    HYBRID_TRAIN_LAYERS of its layers (``get_config`` cut for the run; B
+    HYBRID_TRAIN_BATCH, HYBRID_TRAIN_STEPS steps), both under the models'
+    ``"dots"`` remat.  Losses finite, mamba2's falling; mamba2 launches no
+    flash kernel; zamba2's shared block launches it on HYBRID_FLASH_BODY
+    once per application and forward (twice under ``"dots"``), each launch
+    of step 0 held against the plain version; every leaf of zamba2's SSM
+    layers and of its shared block moved from its seeded start with a
+    nonzero first moment.  Step ms (median after the first), tokens/s,
+    peak memory."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TFM
+    from repro_torch.tree import key_paths
+
+    out = {}
+    m = train_main_run(FK, SSM_ARCH, TRAIN_BATCH, SSM_TRAIN_STEPS)
+    del m["state"], m["captured"]
+    if FK.LAUNCHES["flash_attention"] or not m["losses"][-1] < m["losses"][0]:
+        raise AssertionError(f"{SSM_ARCH}: flash launches {FK.LAUNCHES}, "
+                             f"losses {m['losses']}")
+    log(f"[ssm] train {SSM_ARCH} whole ({get_config(SSM_ARCH).param_count():,}"
+        f" parameters), {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+        f"{SSM_TRAIN_STEPS} steps in {m['wall_s']:.1f}s: loss "
+        f"{m['losses'][0]:.4f} -> {m['losses'][-1]:.4f}; step "
+        f"{m['step_ms']:.1f} ms (median of steps 1-{SSM_TRAIN_STEPS - 1}), "
+        f"{m['tokens_per_s']:,.0f} tokens/s, peak memory "
+        f"{m['peak_gib']:.2f} GiB; no flash launch; card: {card}")
+    out["mamba2"] = m
+
+    cfg = get_config(HYBRID_ARCH).replace(n_layers=HYBRID_TRAIN_LAYERS)
+    per_step = TFM.n_shared_apps(cfg) * (
+        1 if cfg.remat_policy == "everything" else 2)
+    z = train_main_run(FK, HYBRID_ARCH, HYBRID_TRAIN_BATCH,
+                       HYBRID_TRAIN_STEPS, HYBRID_TRAIN_LAYERS,
+                       capture=per_step)
+    state, captured = z.pop("state"), z.pop("captured")
+    want = per_step * HYBRID_TRAIN_STEPS
+    if (FK.LAUNCHES["flash_attention"] != want
+            or FK.PATH_LAUNCHES[HYBRID_FLASH_BODY] != want):
+        raise AssertionError(f"{HYBRID_TRAIN_STEPS} steps launched the "
+                             f"flash bodies {FK.PATH_LAUNCHES}, not "
+                             f"{HYBRID_FLASH_BODY} {want} times")
+    # every leaf of the SSM layers and of the shared block moved with a
+    # gradient
+    start = dict(key_paths(TFM.init_params(cfg, 0, dev)))
+    m1 = dict(key_paths(state["opt"]["m"]))
+    moved = 0
+    for key, a in key_paths(state["params"]):
+        if not key.startswith(("['layers']", "['shared_attn']")):
+            continue
+        if torch.equal(a, start[key]) or not bool(m1[key].ne(0).any()):
+            raise AssertionError(f"{HYBRID_ARCH} {key} did not move with a "
+                                 f"gradient")
+        moved += 1
+    del start, m1
+    err, share, where, _ = hold_launches(FK, captured, dev)
+    shape = tuple(captured[0][0].shape)
+    del captured, state
+    free_card()
+    z.update(launches=want, max_abs_err=err, share=share)
+    log(f"[ssm] train {HYBRID_ARCH}, {cfg.n_layers} of "
+        f"{get_config(HYBRID_ARCH).n_layers} layers ({cfg.param_count():,} "
+        f"parameters; {TFM.n_shared_apps(cfg)} shared-block applications), "
+        f"{HYBRID_TRAIN_BATCH} x {TRAIN_SEQ} tokens, {HYBRID_TRAIN_STEPS} "
+        f"steps in {z['wall_s']:.1f}s: loss {z['losses'][0]:.4f} -> "
+        f"{z['losses'][-1]:.4f}; step {z['step_ms']:.1f} ms, "
+        f"{z['tokens_per_s']:,.0f} tokens/s, peak memory {z['peak_gib']:.2f} "
+        f"GiB; flash launches {want} on {HYBRID_FLASH_BODY}; {moved} leaves "
+        f"of the layers and the shared block moved with a gradient; card: "
+        f"{card}")
+    log(f"[ssm] train: the {per_step} flash launches of step 0 (q {shape}, "
+        f"bf16, causal) = plain: max |err| {err:.3g}, worst share "
+        f"{share:.3f} of the elementwise limit, {where}")
+    out["zamba2"] = z
+    return out
 
 
 def block_attention_grads(cfg, blk, h, attn):
@@ -2551,6 +2866,61 @@ def run_train_main(argv):
         log(f"  {line}")
     return rc, [(int(a), float(b), float(c))
                 for a, b, c in TRAIN_LINE.findall(text)]
+
+
+def train_main_run(FK, arch, batch, steps, layers=None, capture=0):
+    """``launch.train.main`` on ``arch`` (cut to ``layers`` layers through
+    the launcher's ``get_config`` when given), B ``batch`` x S TRAIN_SEQ,
+    ``steps`` steps, with the launch counts set to 0 just before it; the
+    first ``capture`` flash launches are copied to the host as ``(q, k, v,
+    o, kw)``.  Raises unless it exits 0 with a finite loss logged at every
+    step.  -> dict: losses, step_ms (median after the first step),
+    tokens_per_s, wall_s, peak_gib, the final train state, the captured
+    launches."""
+    import statistics
+    import torch
+    from repro_torch.launch import train as T
+
+    real_get, real_train = T.get_config, T.train
+    launch, captured, kept = FK.flash_attention_cuda, [], {}
+
+    def capturing(q, k, v, **kw):
+        o = launch(q, k, v, **kw)
+        if len(captured) < capture:
+            captured.append((*(t.cpu() for t in (q, k, v, o)), kw))
+        return o
+
+    def keeping(*a, **kw):
+        kept["state"], losses = real_train(*a, **kw)
+        return kept["state"], losses
+
+    if layers:
+        T.get_config = lambda name: real_get(name).replace(n_layers=layers)
+    T.train = keeping
+    FK.flash_attention_cuda = capturing
+    free_card()
+    FK.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        rc, rows = run_train_main(
+            ["--arch", arch, "--global-batch", str(batch), "--seq",
+             str(TRAIN_SEQ), "--steps", str(steps), "--log-every", "1"])
+    finally:
+        T.get_config, T.train = real_get, real_train
+        FK.flash_attention_cuda = launch
+    wall = time.perf_counter() - t0
+    if rc != 0 or [r[0] for r in rows] != list(range(steps)):
+        raise AssertionError(f"train.main {arch}: rc {rc}, steps "
+                             f"{[r[0] for r in rows]}")
+    losses = [r[1] for r in rows]
+    if not all(x == x and abs(x) < float("inf") for x in losses):
+        raise AssertionError(f"{arch}: non-finite loss {losses}")
+    step_ms = statistics.median(r[2] for r in rows[1:])
+    return dict(losses=losses, step_ms=step_ms, wall_s=wall,
+                tokens_per_s=batch * TRAIN_SEQ / (step_ms / 1e3),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                state=kept.pop("state"), captured=captured)
 
 
 def train_flops(cfg, tokens: int, seq: int) -> float:
@@ -3425,9 +3795,22 @@ def main() -> int:
     log("[slice12] " + json.dumps({"phi": moe_served, "deepseek": mla_served,
                                    "train": moe_trained}))
 
+    # 18. the SSM and hybrid families at published widths: mamba2 (no
+    # attention) and zamba2 (the flash kernel on its shared block) served
+    # whole, mamba2 trained whole and zamba2 at 12 of 81 layers
+    t0 = time.perf_counter()
+    ssm_served = phase_ssm_serve(FK, fops, dev, card, SSM_ARCH)
+    hybrid_served = phase_ssm_serve(FK, fops, dev, card, HYBRID_ARCH)
+    ssm_trained = phase_ssm_train(FK, dev, card)
+    hybrid_trained = ssm_trained["zamba2"]
+    log(f"[ssm] phase in {time.perf_counter() - t0:.1f}s on {card}")
+    log("[slice13] " + json.dumps({"mamba2": ssm_served,
+                                   "zamba2": hybrid_served,
+                                   "train": ssm_trained}))
+
     log(f"[time] all phases in {time.perf_counter() - t_start:.1f}s")
 
-    # 18. report
+    # 19. report
     src = "src/repro_torch/kernels/wfa/csrc/wfa.cu"
     kernels = []
     for name, variant in (("wfa_score", "score"), ("wfa_trace", "trace")):
@@ -3514,14 +3897,21 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:82",
         # the main paths: the serve launcher's two prefills, the 2,048-token
         # wave's prefill, the train launcher's forwards (12 steps), phi's
-        # served prefill and its 3 training steps
+        # served prefill and its 3 training steps, zamba2's launcher
+        # prefills, served prefill and 3 training steps
         "launches": (serve_launches + served["launches"] + trained["launches"]
                      + moe_served["naive"]["launches"]
-                     + moe_trained["launches"]),
+                     + moe_trained["launches"]
+                     + hybrid_served["main_launches"]
+                     + hybrid_served["launches"]
+                     + hybrid_trained["launches"]),
         "max_abs_err": max(max(flash_worst.values()), flash["max_abs_err"],
                            served["max_abs_err"], trained["max_abs_err"],
                            moe_served["naive"]["max_abs_err"],
-                           moe_trained["max_abs_err"]),
+                           moe_trained["max_abs_err"],
+                           hybrid_served["max_abs_err"],
+                           hybrid_served["flash"]["max_abs_err"],
+                           hybrid_trained["max_abs_err"]),
         # the largest share of a limit (max |err| against 3e-5 / 2e-2; in
         # bf16 also each |err| against 2 ulps of |want| plus a row floor)
         # over the grid, the served shape, the prefill launches and the
@@ -3530,7 +3920,10 @@ def main() -> int:
                                     flash["share"], served["share"],
                                     trained["share"],
                                     moe_served["naive"]["share"],
-                                    moe_trained["share"]),
+                                    moe_trained["share"],
+                                    hybrid_served["share"],
+                                    hybrid_served["flash"]["share"],
+                                    hybrid_trained["share"]),
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         # the other bodies on the same inputs: mma.sync (the yardstick of
         # the wgmma design) and the fp32 pipes (fp32, other head dims)
@@ -3557,7 +3950,22 @@ def main() -> int:
                 "prefill_launch_ms": moe_served["naive"]["flash_launch_ms"],
                 "prefill_bound_ms": moe_served["naive"]["flash_bound_ms"],
                 "training_launches": moe_trained["launches"],
-                "training_share": moe_trained["share"]}})
+                "training_share": moe_trained["share"]},
+        # zamba2's shared attention (bf16, dh 112, G 1: the fp32-pipe
+        # body): its launches (the launcher's prefills, the served prefill,
+        # 3 training steps), ms a launch in the served prefill by CUDA
+        # events, and at that shape alone the body, the plain version and
+        # scaled_dot_product_attention (timed only) beside the bound
+        "hybrid": {"body": hybrid_served["flash"]["body"],
+                   "launches": (hybrid_served["main_launches"]
+                                + hybrid_served["launches"]
+                                + hybrid_trained["launches"]),
+                   "prefill_launch_ms": hybrid_served["flash_launch_ms"],
+                   **{k: hybrid_served["flash"][k] for k in (
+                       "ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms")},
+                   "prefill_share": hybrid_served["share"],
+                   "training_share": hybrid_trained["share"]}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,13 +3,14 @@ card (the JAX package's ``launch/serve.py``).
 
 One prefill per admitted batch, then lock-step decode with greedy sampling
 and a per-slot stop condition.  Prompts are ragged and padded at the end;
-the prefill's K/V are spliced into one ``max_seq`` cache.  Prefill
-attention runs on the CUDA flash-attention kernel; decode attention over
-the cache is plain PyTorch, as the JAX package computes it outside any
-kernel.
+the prefill's caches are spliced into one ``max_seq`` cache (K/V along
+the sequence axis, SSM state caches whole).  Prefill attention runs on the
+CUDA flash-attention kernel; decode attention over the cache is plain
+PyTorch, as the JAX package computes it outside any kernel.
 
     python -m repro_torch.launch.serve --arch qwen3-0.6b           # on the card
     python -m repro_torch.launch.serve --device cpu --arch qwen3-0.6b-smoke
+    python -m repro_torch.launch.serve --device cpu --arch zamba2-7b-smoke
 
 ``--device`` says where the model runs (default ``cuda``, which must exist).
 """
@@ -52,10 +53,11 @@ class BatchServer:
         for i, p in enumerate(prompts):
             toks[i, : len(p)] = p
 
-        cache = self.fns.init_cache(self.cfg, B, self.max_seq, self.device)
         logits, pcache = self._prefill(
             self.params, torch.as_tensor(toks, device=self.device).long())
-        self._splice(cache, pcache, plen)
+        # made after the prefill, whose working memory is then free
+        cache = self.fns.init_cache(self.cfg, B, self.max_seq, self.device)
+        self._splice(cache, pcache)
         del pcache
         out = [list(p) for p in prompts]
         tok = logits.argmax(-1)
@@ -75,11 +77,13 @@ class BatchServer:
         return [np.asarray(o, np.int32) for o in out]
 
     @staticmethod
-    def _splice(cache, pcache, plen):
-        """Copy prefill K/V (length plen) into the max_seq decode cache, in
-        place."""
+    def _splice(cache, pcache):
+        """Copy each prefill cache into the leading corner of the decode
+        cache's, in place: K/V of the prompt's length along the sequence
+        axis, the state caches (no sequence axis, same shape) whole."""
         for k, big in cache.items():
-            big[:, :, :plen] = pcache[k].to(big.dtype)
+            small = pcache[k]
+            big[tuple(slice(0, n) for n in small.shape)] = small.to(big.dtype)
 
 
 def main(argv=None):

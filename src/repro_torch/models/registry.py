@@ -7,8 +7,8 @@
 returns ``device="meta"`` tensors (the counterpart of ``ShapeDtypeStruct``)
 for the inputs of the loss (``train_*``) or of prefill (``prefill_*``), and
 ``synth_batch`` a concrete seeded batch of the same shapes.  The port has
-the dense and MoE families (GQA or MLA attention); the others raise
-``NotImplementedError``.
+the dense, MoE, SSM and hybrid families (GQA or MLA attention); enc-dec and
+VLM raise ``NotImplementedError``.
 """
 from __future__ import annotations
 

@@ -1,16 +1,21 @@
-"""Decoder-only LM of the dense and MoE families, with GQA or MLA attention
-(the JAX package's ``models/transformer.py``): init, forward, the loss and
-the train step, prefill, the KV cache and the one-token decode step.
+"""Decoder-only LM of the dense, MoE, SSM and hybrid families, with GQA or
+MLA attention (the JAX package's ``models/transformer.py``): init, forward,
+the loss and the train step, prefill, the KV / state cache and the
+one-token decode step.
 
 Parameters are a nested dict of tensors under the JAX package's names, with
 ``layers`` a list of per-layer dicts (the JAX package stacks them on a
 leading axis for its ``lax.scan``; :func:`params_from_reference` unstacks).
 An MoE model's leading dense layers (``cfg.first_k_dense``) are the list
 ``head_layers``, with an MLP of ``cfg.dense_layer_ff``; the layers of
-``layers`` hold ``moe`` in its place.  PyTorch runs the layers in a Python
-loop, head layers first.  The KV cache is updated in place
-by :func:`serve_step` (the JAX package returns a new cache), which keeps one
-copy of it on the card.
+``layers`` hold ``moe`` in its place.  An SSM or hybrid layer is ``{"norm",
+"ssm"}`` (a Mamba2 block, ``models/ssm.py``); a hybrid (zamba2) also holds
+one ``shared_attn`` block (GQA attention and an MLP, not stacked) that runs
+after every ``cfg.hybrid_attn_every``-th layer, the segments of
+:func:`_hybrid_segments`.  PyTorch runs the layers in a Python loop, head
+layers first.  The KV and state caches are updated in place by
+:func:`serve_step` (the JAX package returns a new cache), which keeps one
+copy of them on the card.
 
 Training: with grad enabled each block runs under ``torch.utils.
 checkpoint`` by ``cfg.remat_policy`` (the JAX package's ``jax.checkpoint``
@@ -18,8 +23,8 @@ policies) and its attention through ``layers.FlashAttention``;
 :func:`make_train_step` differentiates :func:`loss_fn` and applies AdamW,
 updating the state's tensors in place.
 
-Other families (SSM, hybrid, enc-dec, VLM) raise ``NotImplementedError``:
-they wait in ROADMAP §1's queue.
+Other families (enc-dec, VLM) raise ``NotImplementedError``: they wait in
+ROADMAP §1's queue.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.tree import tree_leaves, tree_unflatten
@@ -42,12 +48,16 @@ from repro_torch.tree import tree_leaves, tree_unflatten
 
 def _ported(cfg: ModelConfig) -> None:
     """Raise for the families the port does not run yet."""
-    if (cfg.family not in ("dense", "moe") or cfg.attn_kind not in
-            ("gqa", "mla") or cfg.mrope):
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
+            or cfg.attn_kind not in ("gqa", "mla") or cfg.mrope):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense and MoE families (GQA or "
-            f"MLA attention); {cfg.family}/{cfg.attn_kind} models wait in "
-            f"ROADMAP §1's queue (SSM, hybrid, enc-dec, VLM)")
+            f"{cfg.name}: the port runs the dense, MoE, SSM and hybrid "
+            f"families (GQA or MLA attention); {cfg.family}/{cfg.attn_kind} "
+            f"models wait in ROADMAP §1's queue (enc-dec, VLM)")
+
+
+def _is_ssm(cfg: ModelConfig) -> bool:
+    return cfg.family in ("ssm", "hybrid")
 
 
 # --------------------------------------------------------------------------
@@ -56,6 +66,9 @@ def _ported(cfg: ModelConfig) -> None:
 
 def _init_block(cfg: ModelConfig, gen: torch.Generator, device,
                 layer_idx: int):
+    if _is_ssm(cfg):
+        return {"norm": L.init_rmsnorm(cfg, cfg.d_model, device),
+                "ssm": SSM.init_ssm(cfg, gen, device)}
     blk = {"ln1": L.init_rmsnorm(cfg, cfg.d_model, device),
            "ln2": L.init_rmsnorm(cfg, cfg.d_model, device)}
     if cfg.attn_kind == "mla":
@@ -95,14 +108,59 @@ def init_params(cfg: ModelConfig, gen=0, device=None) -> Dict[str, Any]:
                                  for i in range(first)]
     params["layers"] = [_init_block(cfg, gen, dev, i)
                         for i in range(first, cfg.n_layers)]
+    if cfg.family == "hybrid" and cfg.hybrid_attn_every:
+        params["shared_attn"] = {
+            "ln1": L.init_rmsnorm(cfg, D, dev),
+            "ln2": L.init_rmsnorm(cfg, D, dev),
+            "attn": L.init_gqa(cfg, gen, dev),
+            "mlp": L.init_mlp(cfg, gen, dev)}
     return params
+
+
+def n_shared_apps(cfg: ModelConfig) -> int:
+    """How many times a hybrid's shared block runs (0 for other
+    families)."""
+    if cfg.family != "hybrid" or not cfg.hybrid_attn_every:
+        return 0
+    return cfg.n_layers // cfg.hybrid_attn_every
+
+
+def _hybrid_segments(cfg: ModelConfig):
+    """[(start, end, apply_shared_after)] covering all stacked layers: runs
+    of ``hybrid_attn_every`` layers, each followed by the shared block, and
+    a shorter tail without it."""
+    every, n = cfg.hybrid_attn_every, cfg.n_layers
+    segs = []
+    a = 0
+    while a < n:
+        b = min(a + every, n)
+        segs.append((a, b, b - a == every))
+        a = b
+    return segs
+
+
+def _run_order(cfg: ModelConfig, params):
+    """The stacked layers in the order they run -> [(the layer's row of
+    the per-layer caches, or None for a hybrid's shared block, which runs
+    after each full segment of :func:`_hybrid_segments`; the block)].  The
+    shared block has a dense GQA block's leaves, so the dense block code
+    runs it."""
+    if not (cfg.family == "hybrid" and "shared_attn" in params):
+        return list(enumerate(params["layers"]))
+    order = []
+    for a, b, shared in _hybrid_segments(cfg):
+        order += [(i, params["layers"][i]) for i in range(a, b)]
+        if shared:
+            order.append((None, params["shared_attn"]))
+    return order
 
 
 def params_from_reference(tree, device=None) -> Dict[str, Any]:
     """The JAX package's parameter tree (numpy or JAX arrays, as
     ``init_train_state(...)[0]["params"]`` gives it, ``layers`` stacked on
-    a leading axis, ``head_layers`` a list of unstacked layers) -> the
-    port's parameters on ``device`` (``None``: the card)."""
+    a leading axis, ``head_layers`` a list of unstacked layers, a hybrid's
+    ``shared_attn`` unstacked) -> the port's parameters on ``device``
+    (``None``: the card)."""
     dev = resolve_device(device)
 
     def conv(x):
@@ -118,7 +176,7 @@ def params_from_reference(tree, device=None) -> Dict[str, Any]:
 
     out = {k: conv(v) for k, v in tree.items() if k != "layers"}
     stacked = conv(tree["layers"])
-    n = stacked["ln1"]["w"].shape[0]
+    n = tree_leaves(stacked)[0].shape[0]
     out["layers"] = [layer(stacked, i) for i in range(n)]
     return out
 
@@ -127,32 +185,40 @@ def params_from_reference(tree, device=None) -> Dict[str, Any]:
 # Full-sequence path
 
 
-def _block_fwd(cfg: ModelConfig, blk, h, pos, *, return_kv=False):
-    """One block, full sequence -> (h, MoE aux loss; 0 for a dense
-    block), and with ``return_kv`` the layer's cache entries: ``(k, v)``
-    for GQA, ``(c_kv, k_rope)`` for MLA."""
+def _block_fwd(cfg: ModelConfig, blk, h, pos, *, return_cache=False):
+    """One block, full sequence -> (h, MoE aux loss; 0 for a dense or SSM
+    block), and with ``return_cache`` the layer's cache entries: ``(k, v)``
+    for GQA, ``(c_kv, k_rope)`` for MLA, the fp32 SSM state and the conv
+    tail for an SSM block.  A hybrid's shared block runs here as a dense
+    GQA block."""
+    zero = lambda: torch.zeros((), dtype=torch.float32, device=h.device)
+    if "ssm" in blk:
+        a = L.rmsnorm(blk["norm"], h, cfg.rms_eps)
+        y = SSM.ssm_forward(blk["ssm"], a, cfg, return_state=return_cache)
+        if return_cache:
+            return h + y[0], zero(), y[1]
+        return h + y, zero()
     a = L.rmsnorm(blk["ln1"], h, cfg.rms_eps)
     attn = L.mla_forward if cfg.attn_kind == "mla" else L.gqa_forward
-    y = attn(blk["attn"], a, cfg, pos, return_kv=return_kv)
-    if return_kv:
+    y = attn(blk["attn"], a, cfg, pos, return_kv=return_cache)
+    if return_cache:
         y, kv = y
     h = h + y
     m = L.rmsnorm(blk["ln2"], h, cfg.rms_eps)
     if "moe" in blk:
         y, aux = MOE.moe_forward(blk["moe"], m, cfg)
     else:
-        y = L.mlp_forward(blk["mlp"], m, cfg)
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        y, aux = L.mlp_forward(blk["mlp"], m, cfg), zero()
     h = h + y
-    return (h, aux, kv) if return_kv else (h, aux)
+    return (h, aux, kv) if return_cache else (h, aux)
 
 
 def _save_dots(ctx, op, *args, **kwargs):
     """The ``"dots"`` policy: keep the outputs of the products without batch
     dimensions (the projections and the MoE router, ``aten.mm``; the JAX
     package's ``dots_with_no_batch_dims_saveable``), recompute the rest
-    (attention with its kernel launch, the batched expert and MLA score
-    products, norms, RoPE, the activation)."""
+    (attention with its kernel launch, the batched expert, MLA score and
+    SSD products, norms, RoPE, the activation)."""
     if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
@@ -198,7 +264,8 @@ def _positions(tokens):
 def forward(params, cfg: ModelConfig, tokens):
     """Full forward. tokens [B,S] -> (logits [B,S,Vp] in the compute dtype,
     the MoE aux loss summed over the layers, fp32).  Head layers run first
-    and outside remat, as in the JAX package."""
+    and outside remat, as in the JAX package; a hybrid's shared block runs
+    after each full segment, under the same remat policy."""
     _ported(cfg)
     pos = _positions(tokens)
     h = _embed(params, cfg, tokens)
@@ -206,7 +273,7 @@ def forward(params, cfg: ModelConfig, tokens):
     for blk in params.get("head_layers", []):
         h, aux = _block_fwd(cfg, blk, h, pos)
         aux_total = aux_total + aux
-    for blk in params["layers"]:
+    for _, blk in _run_order(cfg, params):
         h, aux = _block_remat(cfg, blk, h, pos)
         aux_total = aux_total + aux
     h = L.rmsnorm(params["final_norm"], h, cfg.rms_eps)
@@ -303,18 +370,38 @@ def train_state(params):
 
 
 def _cache_names(cfg: ModelConfig):
+    """The per-layer caches: the SSM state and the conv tail for SSM and
+    hybrid layers, the latent and the rope key for MLA, else K and V."""
+    if _is_ssm(cfg):
+        return ("ssm", "conv")
     return ("ckv", "kr") if cfg.attn_kind == "mla" else ("k", "v")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
-    """Zero caches in ``cfg.cache_dtype``, one row per layer (head layers
-    first): K/V [L, batch, max_seq, KV, dh] for GQA; for MLA the latent
-    ``ckv`` [L, batch, max_seq, r] and the rope key ``kr`` [L, batch,
-    max_seq, rd]."""
+    """Zero caches, one row per layer (head layers first): K/V [L, batch,
+    max_seq, KV, dh] for GQA; for MLA the latent ``ckv`` [L, batch,
+    max_seq, r] and the rope key ``kr`` [L, batch, max_seq, rd]; for SSM
+    and hybrid layers the fp32 state ``ssm`` [L, batch, H, P, N] and the
+    conv tail ``conv`` [L, batch, W-1, xbc], and for a hybrid also the
+    shared block's ``attn_k`` / ``attn_v`` [n_apps, batch, max_seq, KV,
+    dh], one row per application; all but ``ssm`` in ``cfg.cache_dtype``."""
     _ported(cfg)
     dev = resolve_device(device)
     cd = getattr(torch, cfg.cache_dtype)
     L_, B = cfg.n_layers, batch
+    if _is_ssm(cfg):
+        xbc = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        cache = {"ssm": torch.zeros((L_, B, cfg.ssm_heads, cfg.ssm_head_dim,
+                                     cfg.ssm_state), dtype=torch.float32,
+                                    device=dev),
+                 "conv": torch.zeros((L_, B, cfg.ssm_conv - 1, xbc),
+                                     dtype=cd, device=dev)}
+        if cfg.family == "hybrid":
+            for n in ("attn_k", "attn_v"):
+                cache[n] = torch.zeros((n_shared_apps(cfg), B, max_seq,
+                                        cfg.n_kv_heads, cfg.d_head),
+                                       dtype=cd, device=dev)
+        return cache
     if cfg.attn_kind == "mla":
         shapes = ((L_, B, max_seq, cfg.kv_lora_rank),
                   (L_, B, max_seq, cfg.qk_rope_dim))
@@ -325,8 +412,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
 
 
 def _block_decode(cfg: ModelConfig, blk, h, c0, c1, cache_len: int):
-    """One block, one token; ``c0, c1`` the layer's cache rows (K, V or
-    the latent and the rope key), written in place."""
+    """One block, one token; ``c0, c1`` the layer's cache rows (K and V,
+    the latent and the rope key, or the SSM state and the conv tail),
+    written in place."""
+    if "ssm" in blk:
+        a = L.rmsnorm(blk["norm"], h, cfg.rms_eps)
+        y, (state, conv) = SSM.ssm_decode(blk["ssm"], a, cfg, c0, c1)
+        c0.copy_(state)
+        c1.copy_(conv)
+        return h + y
     a = L.rmsnorm(blk["ln1"], h, cfg.rms_eps)
     attn = L.mla_decode if cfg.attn_kind == "mla" else L.gqa_decode
     y, _, _ = attn(blk["attn"], a, cfg, c0, c1, cache_len)
@@ -339,16 +433,25 @@ def _block_decode(cfg: ModelConfig, blk, h, c0, c1, cache_len: int):
 
 def serve_step(params, cfg: ModelConfig, cache, token, cache_len: int):
     """token [B] int; cache_len an int -> (logits [B,Vp] fp32, cache), the
-    new cache entries written into row ``cache_len`` of ``cache`` in place.
-    Head layers take cache rows 0 .. n_head - 1, the stacked layers the
-    rest; MoE routes the B tokens of the step."""
+    new cache entries written into ``cache`` in place: row ``cache_len``
+    of K/V (and of a hybrid's ``attn_k`` / ``attn_v``), the whole SSM state
+    and conv tail.  Head layers take cache rows 0 .. n_head - 1, the
+    stacked layers the rest; MoE routes the B tokens of the step."""
     _ported(cfg)
+    cache_len = int(cache_len)
     h = _embed(params, cfg, token[:, None])
     n0, n1 = _cache_names(cfg)
-    layers = params.get("head_layers", []) + params["layers"]
-    for i, blk in enumerate(layers):
-        h = _block_decode(cfg, blk, h, cache[n0][i], cache[n1][i],
-                          int(cache_len))
+    head = params.get("head_layers", [])
+    for i, blk in enumerate(head):
+        h = _block_decode(cfg, blk, h, cache[n0][i], cache[n1][i], cache_len)
+    app = 0
+    for row, blk in _run_order(cfg, params):
+        if row is None:         # a hybrid's shared block: its own K/V rows
+            c0, c1 = cache["attn_k"][app], cache["attn_v"][app]
+            app += 1
+        else:
+            c0, c1 = cache[n0][len(head) + row], cache[n1][len(head) + row]
+        h = _block_decode(cfg, blk, h, c0, c1, cache_len)
     h = L.rmsnorm(params["final_norm"], h, cfg.rms_eps)
     return _logits(params, cfg, h)[:, 0].float(), cache
 
@@ -357,18 +460,25 @@ def prefill(params, cfg: ModelConfig, tokens):
     """tokens [B,S] -> (next-token logits [B,Vp] fp32, cache filled to S).
 
     The logits are those of the last position, S - 1, for every row: a
-    shorter prompt padded at the end gets the logits of a pad position, as
-    in the JAX package.  Head layers first; the cache as
-    :func:`init_cache` lays it out, S rows long."""
+    shorter prompt padded at the end gets the logits of a pad position (and
+    an SSM state that has taken the pad tokens in), as in the JAX package.
+    Head layers first; the cache as :func:`init_cache` lays it out, S rows
+    long, the SSM state and conv tail those after position S - 1."""
     _ported(cfg)
     pos = _positions(tokens)
     h = _embed(params, cfg, tokens)
-    kvs = []
-    for blk in params.get("head_layers", []) + params["layers"]:
-        h, _, kv = _block_fwd(cfg, blk, h, pos, return_kv=True)
-        kvs.append(kv)
+    entries, shared_kv = [], []
+    for blk in params.get("head_layers", []):
+        h, _, e = _block_fwd(cfg, blk, h, pos, return_cache=True)
+        entries.append(e)
+    for row, blk in _run_order(cfg, params):
+        h, _, e = _block_fwd(cfg, blk, h, pos, return_cache=True)
+        (shared_kv if row is None else entries).append(e)
     h = L.rmsnorm(params["final_norm"], h, cfg.rms_eps)
     logits = _logits(params, cfg, h[:, -1:, :])
-    return logits[:, 0].float(), {
-        n: torch.stack([kv[j] for kv in kvs])
-        for j, n in enumerate(_cache_names(cfg))}
+    cache = {n: torch.stack([e[j] for e in entries])
+             for j, n in enumerate(_cache_names(cfg))}
+    if shared_kv:
+        cache["attn_k"] = torch.stack([kv[0] for kv in shared_kv])
+        cache["attn_v"] = torch.stack([kv[1] for kv in shared_kv])
+    return logits[:, 0].float(), cache

@@ -126,6 +126,39 @@ def test_wgmma_body_matches_plain(cuda_device, dh, H, KV, Sq, Sk, causal):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("S", [250, 2048])
+def test_fp32_pipes_at_dh112_matches_plain(cuda_device, S):
+    """zamba2's shared attention: bf16 at dh 112, 32 query heads on 32 KV
+    heads (G 1), causal.  The default body is the fp32 pipes (the wgmma
+    body takes dh 64 and 128 only); the call counts one launch under it and
+    equals the plain version."""
+    q, k, v = _qkv(2, S, 32, 32, 112, "bfloat16", S + 112, cuda_device)
+    qp, kp, vp, bq, bk = t_ops.pad_blocks(q, k, v, causal=True)
+    paths = dict(t_kernel.PATH_LAUNCHES)
+    got = t_kernel.flash_attention_cuda(qp, kp, vp, causal=True, block_q=bq,
+                                        block_k=bk)
+    torch.cuda.synchronize()
+    assert {key: t_kernel.PATH_LAUNCHES[key] - n
+            for key, n in paths.items()} == {"wgmma": 0, "mma_sync": 0,
+                                             "fp32_pipes": 1}
+    want = t_kernel.flash_attention_plain(qp, kp, vp, causal=True,
+                                          block_q=bq, block_k=bk)
+    _assert_close(got[:, :S], want[:, :S])
+
+
+@pytest.mark.gpu
+def test_wgmma_refuses_dh112(cuda_device):
+    """Asked for by name, the wgmma body refuses bf16 at dh 112 and
+    launches nothing."""
+    q, k, v = _qkv(1, 256, 32, 32, 112, "bfloat16", 9, cuda_device)
+    paths = dict(t_kernel.PATH_LAUNCHES)
+    with pytest.raises(ValueError, match="head dims 64 and 128"):
+        t_kernel.flash_attention_cuda(q, k, v, causal=True, block_q=256,
+                                      block_k=256, body="wgmma")
+    assert t_kernel.PATH_LAUNCHES == paths
+
+
+@pytest.mark.gpu
 def test_wgmma_dropped_tile_fails_the_check(cuda_device):
     """The check catches a fault in the wgmma body: with its 128-key tile 4
     left out, the output leaves the bf16 limits; without, it stays."""
