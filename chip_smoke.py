@@ -211,7 +211,33 @@ Phases (each raises on failure, and the script then exits non-zero):
    losses, mamba2's falling; every leaf of zamba2's SSM layers and shared
    block moved with a gradient, its step-0 flash launches held against the
    plain version; step ms, tokens/s, peak;
-19. report — a ``kernels`` JSON line, the card's name and power limit, and
+19. the enc-dec and VLM families — (a) whisper-base whole at published
+   widths, seeded fp32 weights: a wave of 16 requests of 1,500 seeded frame
+   embeddings (30 s of audio through the stubbed frontend) and the 4-token
+   start-of-transcript prompt, 224 greedy new tokens in a 448-token
+   context, through ``prefill`` / ``serve_step`` (:func:`direct_wave`; the
+   serve launcher refuses enc-dec as the JAX package's does): 18 flash
+   launches a prefill on wgmma (the encoder's 6 non-causal over the 1,500
+   frames unpadded, each decoder layer's causal self- and non-causal
+   cross-attention), each held against the plain version, and the first
+   encoder launch with its keys zero-padded to 1,536 (a planted fault)
+   failing the check; prefill + decode logits against one ``forward`` in
+   bf16 and fp32 within ENCDEC_E2E_TOL (:func:`encdec_e2e`), a decode
+   reading the next request's cross caches past them; the encoder's and
+   the cross-attention's launch shapes timed alone beside their bounds and
+   ``scaled_dot_product_attention``; (b) qwen2-vl-7b whole (28 layers, G
+   7, dh 128): a wave of 8 x 2,048 tokens, 32 new, the first 256 positions
+   seeded patch embeddings on a 16 x 16 M-RoPE grid, text after it
+   (:func:`mrope_grid_positions`), each decode step given its M-RoPE
+   positions: 28 flash launches a prefill on wgmma, each held against the
+   plain version; prefill + decode against one forward in bf16 and fp32
+   within VLM_E2E_TOL (:func:`vlm_e2e`), a decode without M-RoPE positions
+   past them; (c) ``launch.train.main`` on whisper whole (8 x 448 tokens
+   on zero frames, 3 steps) and on qwen2-vl at 4 of 28 layers (2 x 1,024,
+   3 steps), under ``"dots"``: finite losses, 36 and 8 flash launches a
+   step on wgmma, step 0's held against the plain version, every leaf of
+   the layers moved with a gradient; step ms, tokens/s, peak;
+20. report — a ``kernels`` JSON line, the card's name and power limit, and
    the final ``{"ok": true, ...}`` line.
 
 It needs one card and exits non-zero without one.  It imports nothing of
@@ -387,6 +413,49 @@ HYBRID_TRAIN_STEPS = 3
 # in either dtype at least 4.75 / 0.753.  The bf16 bounds sit about 4x from
 # both sides, the fp32 ones about 10x above the sound readings.
 SSM_E2E_TOL = {"bfloat16": {"max": 1.25, "mean": 0.18},
+               "float32": {"max": 1e-3, "mean": 1e-4}}
+# phase 19, the enc-dec and VLM families at published widths with fp32
+# weights (configs/whisper_base.py, configs/qwen2_vl_7b.py), both served
+# whole (0.27 and 28.4 GiB).  whisper trains whole; qwen2-vl's 7.62 B
+# parameters would take 122 GB of training state (16 B a parameter), so it
+# trains at VLM_TRAIN_LAYERS of its 28 layers (2.02 B parameters, untied
+# embeddings included: about 32 GB).
+ENCDEC_ARCH = "whisper-base"
+VLM_ARCH = "qwen2-vl-7b"
+# whisper: a wave of 16 requests, each 30 s of audio (1,500 frame
+# embeddings, the stubbed frontend's output) with the start-of-transcript
+# prompt <|startoftranscript|><|en|><|transcribe|><|notimestamps|>, 224
+# greedy new tokens in the decoder's 448-token context; trained on 8 x 448
+# tokens over zero frames
+ENCDEC_BATCH = 16
+ENCDEC_PROMPT = (50258, 50259, 50359, 50363)
+ENCDEC_NEW = 224
+ENCDEC_MAX_SEQ = 448
+ENCDEC_TRAIN_BATCH = 8
+ENCDEC_TRAIN_SEQ = 448
+ENCDEC_TRAIN_STEPS = 3
+# qwen2-vl: phase 12b's wave (LM_BATCH x LM_PROMPT, LM_NEW new) whose first
+# 256 positions are an image's patch embeddings on a 16 x 16 grid
+VLM_GRID = 16
+VLM_TRAIN_LAYERS = 4
+VLM_TRAIN_BATCH = 2
+VLM_TRAIN_STEPS = 3
+# prefill + decode against one forward (max / mean |dlogit|), fp32 held to
+# phase 18's bounds, bf16 to bounds of each family's own, set between its
+# sound readings and a planted fault's on the H100 (their first readings):
+# - whisper: sound bf16 0.01953 / 0.0025; the fault, each request's decode
+#   reading the next request's cross caches, only 0.1455 / 0.02305 (fp32
+#   0.1358 / 0.02281): attention over 1,500 random frames averages much of
+#   a recording out.  Under 12b's 0.25 / 0.03 it passed, so the bounds sit
+#   between, 2.6-3.1x from each side;
+# - qwen2-vl: logits of std 1.197 against qwen3's 0.64, and bf16
+#   differences scale with them: sound 0.1875 / 0.02576 (0.86 of 12b's
+#   mean bound), the fault (decode given no M-RoPE positions) 5.88 /
+#   0.859.  12b's bounds scaled by the std, 0.5 / 0.06: 2.3-2.7x above the
+#   sound reading, 12-14x below the fault's.
+ENCDEC_E2E_TOL = {"bfloat16": {"max": 0.05, "mean": 0.0075},
+                  "float32": {"max": 1e-3, "mean": 1e-4}}
+VLM_E2E_TOL = {"bfloat16": {"max": 0.5, "mean": 0.06},
                "float32": {"max": 1e-3, "mean": 1e-4}}
 
 
@@ -1901,17 +1970,7 @@ def serve_wave(FK, dev, cfg, params, prompts, *, flash_layers, moe=None,
                          device=dev)
     logits, times, captured = [], {"prefill": 0.0, "decode": 0.0}, []
     prefill, step = server._prefill, server._step
-    launch = FK.flash_attention_cuda
     moe_events, stats = [], {"prefill": {}, "decode": {}}
-
-    def capturing(q, k, v, **kw):
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        o = launch(q, k, v, **kw)
-        ev[1].record()
-        captured.append((q, k, v, kw, o, ev))
-        return o
 
     def timed(name, fn):
         def run(*a):
@@ -1941,14 +2000,17 @@ def serve_wave(FK, dev, cfg, params, prompts, *, flash_layers, moe=None,
 
     def patched(fn, phase, flash):
         def run(*a):
+            restore = lambda: None
             if flash:
-                FK.flash_attention_cuda = capturing
+                launches, restore = capture_flash(FK)
             if moe is not None:
                 real, moe.moe_forward = counting(phase, phase == "prefill")
             try:
                 return fn(*a)
             finally:
-                FK.flash_attention_cuda = launch
+                restore()
+                if flash:
+                    captured.extend(launches)
                 if moe is not None:
                     moe.moe_forward = real
         return run
@@ -2017,18 +2079,7 @@ def serve_wave(FK, dev, cfg, params, prompts, *, flash_layers, moe=None,
         r["decode_drops"] = sum(int(d) for d in stats["decode"]["dropped"])
         r["decode_calls"] = len(stats["decode"]["dropped"])
 
-    # every flash launch of the prefill against the plain version
-    err = share = 0.0
-    where = ""
-    for layer, (q, k, v, kw, o, _) in enumerate(captured):
-        want = FK.flash_attention_plain(q, k, v, **kw)
-        e, sh = flash_check(o, want)
-        if not sh <= 1:
-            raise AssertionError(f"a prefill flash launch != plain: max "
-                                 f"|err| {e}, {sh:.3g} of the limit")
-        if sh > share:
-            where = f"{flash_worst(o, want)} in layer {layer}"
-        err, share = max(err, e), max(share, sh)
+    err, share, where = check_captured(FK, captured)
     r.update(max_abs_err=err, share=share, where=where)
     if captured:
         (B, S, H, dh), KV = captured[0][0].shape, captured[0][1].shape[2]
@@ -2038,6 +2089,24 @@ def serve_wave(FK, dev, cfg, params, prompts, *, flash_layers, moe=None,
                  flash_bound_ms=attention_bound(B, S, S, H, KV, dh, True)[0])
     r.update(body=body)
     return r
+
+
+def check_captured(FK, captured):
+    """Every captured flash launch ``(q, k, v, kw, o, events)`` of a
+    prefill against the plain version on its own inputs, to both limits ->
+    (max |err|, worst share, where)."""
+    err = share = 0.0
+    where = ""
+    for i, (q, k, v, kw, o, _) in enumerate(captured):
+        want = FK.flash_attention_plain(q, k, v, **kw)
+        e, sh = flash_check(o, want)
+        if not sh <= 1:
+            raise AssertionError(f"a prefill flash launch != plain: max "
+                                 f"|err| {e}, {sh:.3g} of the limit")
+        if sh > share:
+            where = f"{flash_worst(o, want)} in launch {i}"
+        err, share = max(err, e), max(share, sh)
+    return err, share, where
 
 
 def log_wave(name, r, card):
@@ -2245,13 +2314,13 @@ def free_card():
 def seeded_params(cfg, dev, seed):
     """Seeded random weights on the card -> (params, seconds, GiB)."""
     import torch
-    from repro_torch.models import transformer as TFM
+    from repro_torch.models.registry import get_model_fns
     from repro_torch.tree import tree_leaves
     free_card()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    params = TFM.init_params(cfg, torch.Generator(device=dev)
-                             .manual_seed(seed), dev)
+    params = get_model_fns(cfg).init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), dev)
     torch.cuda.synchronize()
     n = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     return params, time.perf_counter() - t0, n / 2**30
@@ -2510,37 +2579,47 @@ def ssm_e2e(cfg, params, prompts, new, device, served=None,
     diff = (dec - ref).abs()
     return dict(max=float(diff.max()), mean=float(diff.mean()),
                 logit_std=float(ref.std()), positions=len(logits),
-                padded_to=padded, argmax_agree=float(
+                rows=rows, padded_to=padded, argmax_agree=float(
                     (dec.argmax(-1) == ref.argmax(-1)).float().mean()),
                 finite=bool(torch.isfinite(dec).all()))
 
 
-def check_ssm_e2e(name, chks, tol, card="", fault=False):
-    """Log the runs of :func:`ssm_e2e`, one a dtype of ``tol`` (``chks[dt]``
-    against the bounds ``tol[dt]``); raise unless each is finite and within
-    its bounds, or, for a planted ``fault``, unless each exceeds both."""
+def check_e2e(name, chks, tol, card="", fault=None, tag="serve", what=""):
+    """Log runs of prefill + decode against one forward, one a dtype of
+    ``tol`` (``chks[dt]`` against the bounds ``tol[dt]``; ``what`` says
+    what the forward ran over); raise unless each is finite and within its
+    bounds, or, for a planted ``fault`` (its description), unless each
+    exceeds both."""
     def line(c, lim):
         return (f"max |dlogit| {c['max']:.4g} (tol {lim['max']:.4g}), mean "
                 f"{c['mean']:.4g} (tol {lim['mean']:.4g}), logit std "
                 f"{c['logit_std']:.3f}, greedy tokens agree on "
                 f"{100 * c['argmax_agree']:.1f}%")
-    c0 = chks["bfloat16"]
-    log(f"[ssm] {name} prefill + decode"
-        + (" without the SSM state (planted fault)" if fault else "")
-        + f" vs one forward (prompt, decoded tokens, filler to "
-        f"{c0['padded_to']}), {LM_E2E_ROWS} requests x {c0['positions']} "
-        f"positions: " + "; ".join(f"{dt} {line(chks[dt], lim)}"
-                                   for dt, lim in tol.items())
-        + f"; card: {card}")
+    c0 = next(iter(chks.values()))
+    log(f"[{tag}] {name} prefill + decode"
+        + (f" ({fault}, planted)" if fault else "")
+        + f" vs one forward{what}, {c0['rows']} requests x "
+        f"{c0['positions']} positions: "
+        + "; ".join(f"{dt} {line(chks[dt], lim)}" for dt, lim in tol.items())
+        + (f"; card: {card}" if card else ""))
     for dt, lim in tol.items():
         c = chks[dt]
         within = [c[k] <= lim[k] for k in ("max", "mean")]
         if fault and any(within):
-            raise AssertionError(f"{name}: a decode without the SSM state "
-                                 f"passed a {dt} bound: {c} against {lim}")
+            raise AssertionError(f"{name}: {fault} passed a {dt} bound: {c} "
+                                 f"against {lim}")
         if not fault and not (all(within) and c["finite"]):
             raise AssertionError(f"{name}: {dt} prefill + decode logits != "
                                  f"forward: {c} against {lim}")
+
+
+def check_ssm_e2e(name, chks, tol, card="", fault=False):
+    """:func:`check_e2e` for :func:`ssm_e2e`'s runs; the planted fault is
+    a decode without the SSM state."""
+    check_e2e(name, chks, tol, card,
+              fault="a decode without the SSM state" if fault else None,
+              tag="ssm", what=" (prompt, decoded tokens, filler to "
+              f"{next(iter(chks.values()))['padded_to']})")
 
 
 def phase_hybrid_flash(FK, fops, dev, shape, card):
@@ -2688,10 +2767,8 @@ def phase_ssm_train(FK, dev, card):
     layers and of its shared block moved from its seeded start with a
     nonzero first moment.  Step ms (median after the first), tokens/s,
     peak memory."""
-    import torch
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as TFM
-    from repro_torch.tree import key_paths
 
     out = {}
     m = train_main_run(FK, SSM_ARCH, TRAIN_BATCH, SSM_TRAIN_STEPS)
@@ -2723,17 +2800,8 @@ def phase_ssm_train(FK, dev, card):
                              f"{HYBRID_FLASH_BODY} {want} times")
     # every leaf of the SSM layers and of the shared block moved with a
     # gradient
-    start = dict(key_paths(TFM.init_params(cfg, 0, dev)))
-    m1 = dict(key_paths(state["opt"]["m"]))
-    moved = 0
-    for key, a in key_paths(state["params"]):
-        if not key.startswith(("['layers']", "['shared_attn']")):
-            continue
-        if torch.equal(a, start[key]) or not bool(m1[key].ne(0).any()):
-            raise AssertionError(f"{HYBRID_ARCH} {key} did not move with a "
-                                 f"gradient")
-        moved += 1
-    del start, m1
+    moved = moved_with_gradient(state, TFM.init_params(cfg, 0, dev),
+                                ("['layers']", "['shared_attn']"))
     err, share, where, _ = hold_launches(FK, captured, dev)
     shape = tuple(captured[0][0].shape)
     del captured, state
@@ -2753,6 +2821,501 @@ def phase_ssm_train(FK, dev, card):
         f"bf16, causal) = plain: max |err| {err:.3g}, worst share "
         f"{share:.3f} of the elementwise limit, {where}")
     out["zamba2"] = z
+    return out
+
+
+def mrope_grid_positions(B, S, grid):
+    """qwen2-vl's M-RoPE positions [B, S, 3] (numpy int32) of an image of
+    ``grid`` x ``grid`` patches at positions 0 .. grid**2 - 1 followed by
+    text: a patch has temporal 0, height its row and width its column; the
+    text goes on from the grid's largest position plus one, equal in the
+    three sections."""
+    import numpy as np
+    P = grid * grid
+    pos = np.zeros((S, 3), np.int32)
+    pos[:P, 1], pos[:P, 2] = np.divmod(np.arange(P), grid)
+    pos[P:] = (grid + np.arange(S - P))[:, None]
+    return np.ascontiguousarray(np.broadcast_to(pos, (B, S, 3)))
+
+
+def greedy(fns, cfg, params, toks, new, max_seq, prefill_kw,
+           step_kw=lambda n: {}, rows=LM_E2E_ROWS, corrupt=None):
+    """``fns.prefill(params, cfg, toks, **prefill_kw)`` into a ``max_seq``
+    cache, then ``new - 1`` greedy ``fns.serve_step`` calls (``step_kw(n)``
+    the keywords of the step at cache length n), the prefill and each step
+    synchronised and timed.  ``corrupt(cache)`` (a planted fault) may
+    change the cache after the prefill.  -> dict: ``outs`` [B, S + new]
+    (numpy), the logits of the first ``rows`` requests (the prefill's last
+    position, then each step), prefill and decode seconds."""
+    import numpy as np
+    import torch
+    B, S = toks.shape
+    sync = torch.cuda.synchronize if toks.is_cuda else (lambda: None)
+    with torch.inference_mode():
+        sync()
+        t0 = time.perf_counter()
+        logits, pcache = fns.prefill(params, cfg, toks, **prefill_kw)
+        tok = logits.argmax(-1)
+        out, kept = [tok], [logits[:rows].clone()]
+        sync()
+        t1 = time.perf_counter()
+        cache = fns.init_cache(cfg, B, max_seq, toks.device)
+        for k, small in pcache.items():
+            cache[k][tuple(slice(0, n) for n in small.shape)] = small
+        del pcache
+        if corrupt is not None:
+            corrupt(cache)
+        for t in range(new - 1):
+            logits, cache = fns.serve_step(params, cfg, cache, tok, S + t,
+                                           **step_kw(S + t))
+            tok = logits.argmax(-1)
+            out.append(tok)
+            kept.append(logits[:rows].clone())
+        sync()
+        t2 = time.perf_counter()
+    outs = np.concatenate([toks.cpu().numpy(),
+                           torch.stack(out, 1).cpu().numpy()], axis=1)
+    return dict(outs=outs, logits=kept, prefill_s=t1 - t0,
+                decode_s=t2 - t1, steps=new - 1)
+
+
+def e2e_against_forward(fns, cfg, params, served, S, forward_kw):
+    """The logits of a wave served by :func:`greedy` against one
+    ``forward`` over its first rows' prompts and decoded tokens (the last
+    decoded token has no logits to compare) -> dict: max and mean
+    |difference|, the logits' std, greedy agreement, rows, positions,
+    finite."""
+    import torch
+    kept = served["logits"]
+    rows, n = kept[0].shape[0], len(kept)
+    dev = kept[0].device
+    seq = torch.as_tensor(served["outs"][:rows, :S + n - 1], device=dev)
+    with torch.inference_mode():
+        full, _ = fns.forward(params, cfg, seq.long(), **forward_kw)
+    ref = full[:, S - 1:S - 1 + n].float()
+    dec = torch.stack(kept, dim=1).float()
+    diff = (dec - ref).abs()
+    return dict(max=float(diff.max()), mean=float(diff.mean()),
+                logit_std=float(ref.std()), rows=rows, positions=n,
+                argmax_agree=float((dec.argmax(-1) == ref.argmax(-1))
+                                   .float().mean()),
+                finite=bool(torch.isfinite(dec).all()))
+
+
+def encdec_e2e(cfg, params, frames, prompts, new, device, served=None,
+               fault=False):
+    """Prefill + greedy decode against one forward for an enc-dec model:
+    ``frames`` [B, T, D] and ``prompts`` [B, S] (tensor or numpy) served
+    here (or ``served`` = :func:`greedy`'s result for them), the logits of
+    the first LM_E2E_ROWS requests against one ``forward`` over the same
+    frames, prompts and decoded tokens.  ``fault`` plants one for the
+    check's control: each request's decode reads the next request's cross
+    caches (another recording's encoder states)."""
+    import torch
+    from repro_torch.models.registry import get_model_fns
+    fns = get_model_fns(cfg)
+    toks = torch.as_tensor(prompts, device=device).long()
+    frames = torch.as_tensor(frames, device=device)
+    S = toks.shape[1]
+
+    def roll(cache):
+        for k in ("ck", "cv"):
+            cache[k].copy_(cache[k].roll(1, dims=1))
+
+    if served is None:
+        served = greedy(fns, cfg, params, toks, new, S + new,
+                        {"frames": frames}, corrupt=roll if fault else None)
+    rows = served["logits"][0].shape[0]
+    return e2e_against_forward(fns, cfg, params, served, S,
+                               {"frames": frames[:rows]})
+
+
+def vlm_e2e(cfg, params, prompts, patches, new, grid, device, served=None,
+            fault=False):
+    """Prefill + greedy decode against one forward for a VLM: ``prompts``
+    [B, S] whose first grid**2 positions are the image's ``patches`` [B,
+    grid**2, D], M-RoPE positions by :func:`mrope_grid_positions` (each
+    decode step given its token's), served here or ``served`` as in
+    :func:`encdec_e2e`.  ``fault`` plants one: the decode steps take no
+    M-RoPE positions (plain RoPE at the cache length)."""
+    import torch
+    from repro_torch.models.registry import get_model_fns
+    fns = get_model_fns(cfg)
+    toks = torch.as_tensor(prompts, device=device).long()
+    patches = torch.as_tensor(patches, device=device)
+    B, S = toks.shape
+    mpos = torch.as_tensor(mrope_grid_positions(B, S + new, grid),
+                           device=device)
+    if served is None:
+        step_kw = ((lambda n: {}) if fault
+                   else (lambda n: {"mrope_pos": mpos[:, n:n + 1]}))
+        served = greedy(fns, cfg, params, toks, new, S + new,
+                        {"patch_embeds": patches,
+                         "mrope_pos": mpos[:, :S]}, step_kw)
+    rows, n = served["logits"][0].shape[0], len(served["logits"])
+    return e2e_against_forward(fns, cfg, params, served, S, {
+        "patch_embeds": patches[:rows],
+        "mrope_pos": mpos[:rows, :S + n - 1]})
+
+
+def capture_flash(FK):
+    """Patch ``FK.flash_attention_cuda`` to keep each launch's inputs,
+    keywords, output and CUDA events -> (the list, a function that
+    restores the real launcher)."""
+    import torch
+    launch, captured = FK.flash_attention_cuda, []
+
+    def capturing(q, k, v, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        o = launch(q, k, v, **kw)
+        ev[1].record()
+        captured.append((q, k, v, kw, o, ev))
+        return o
+
+    FK.flash_attention_cuda = capturing
+    return captured, lambda: setattr(FK, "flash_attention_cuda", launch)
+
+
+def direct_wave(FK, cfg, params, toks, new, max_seq, prefill_kw, step_kw,
+                flash_layers):
+    """A wave served through ``get_model_fns(cfg).prefill`` /
+    ``serve_step`` (:func:`greedy`) after a first wave of 2 new tokens
+    (timed apart), with the launch counts set to 0 just before it: the
+    wave (its prefill; decode attention runs ``_sdpa``) must launch the
+    flash kernel ``flash_layers`` times, all on the wgmma body, each launch
+    held against the plain version on its own inputs.  -> dict: the served
+    wave, tokens/s, the peak, the launches, each launch's ms by CUDA
+    events, the check, the captured launches."""
+    import torch
+    from repro_torch.models.registry import get_model_fns
+    fns = get_model_fns(cfg)
+    B, S = toks.shape
+    t0 = time.perf_counter()
+    greedy(fns, cfg, params, toks, 2, max_seq, prefill_kw, step_kw)
+    cold = time.perf_counter() - t0
+    free_card()
+    FK.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    captured, restore = capture_flash(FK)
+    try:
+        served = greedy(fns, cfg, params, toks, new, max_seq, prefill_kw,
+                        step_kw)
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated()
+    launches = FK.LAUNCHES["flash_attention"]
+    if launches != flash_layers or len(captured) != flash_layers:
+        raise AssertionError(f"the prefill launched the flash kernel "
+                             f"{launches} times, not {flash_layers}")
+    if FK.PATH_LAUNCHES["wgmma"] != launches:
+        raise AssertionError(f"the prefill ran the flash bodies "
+                             f"{FK.PATH_LAUNCHES}, not all on wgmma")
+    err, share, where = check_captured(FK, captured)
+    each = [ev[0].elapsed_time(ev[1]) for *_, ev in captured]
+    return dict(served=served, cold_s=cold, peak_gib=peak / 2**30,
+                launches=launches, launch_ms=each,
+                prefill_tps=B * S / served["prefill_s"],
+                decode_tps=B * served["steps"] / served["decode_s"],
+                max_abs_err=err, share=share, where=where,
+                captured=captured)
+
+
+def flash_alone(FK, q, k, v, kw, Sq):
+    """One captured flash launch of the path alone (``q`` padded as the
+    model pads it, its first ``Sq`` rows real; ``kw`` the launch's
+    keywords): the default body, the plain version and
+    ``scaled_dot_product_attention`` on the real rows (timed only) by CUDA
+    events in two turns, beside the bound of the real work -> dict."""
+    import torch.nn.functional as F
+    B, _, H, dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    causal = kw["causal"]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q[:, :Sq], k, v))
+    runs = {"kernel": (lambda: FK.flash_attention_cuda(q, k, v, **kw), 20),
+            "plain": (lambda: FK.flash_attention_plain(q, k, v, **kw), 2),
+            "library": (lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), 20)}
+    turns = {name: [] for name in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for name in order:
+            turns[name].append(cuda_ms(*runs[name]))
+    ms = {name: sum(t) / len(t) for name, t in turns.items()}
+    bound_ms, bound_by = attention_bound(B, Sq, Sk, H, KV, dh, causal)
+    return dict(shape=[B, Sq, Sk, H, KV, dh], causal=causal,
+                ms=ms["kernel"], plain_ms=ms["plain"],
+                library_ms=ms["library"], bound_ms=bound_ms,
+                bound_by=bound_by, turns=turns)
+
+
+def log_direct(tag, name, r, card):
+    lo, hi = min(r["launch_ms"]), max(r["launch_ms"])
+    s = r["served"]
+    log(f"[{tag}] {name}: prefill {s['prefill_s']:.3f}s "
+        f"({r['prefill_tps']:,.0f} tokens/s; {r['launches']} flash launches "
+        f"{sum(r['launch_ms']):.3f} ms of it by CUDA events, {lo:.4f}-"
+        f"{hi:.4f} ms each, all on wgmma), decode {s['steps']} steps in "
+        f"{s['decode_s']:.3f}s ({r['decode_tps']:,.1f} tokens/s), peak "
+        f"memory {r['peak_gib']:.2f} GiB (a first wave of 2 new tokens "
+        f"{r['cold_s']:.2f}s); the launches = plain: max |err| "
+        f"{r['max_abs_err']:.3g}, worst share {r['share']:.3f} of the "
+        f"limits, {r['where']}; card: {card}")
+
+
+def phase_encdec_serve(FK, dev, card):
+    """Phase 19a: whisper-base whole at published widths, seeded fp32
+    weights: a wave of ENCDEC_BATCH requests, each 1,500 seeded frame
+    embeddings (30 s of audio through the stubbed frontend) and the
+    start-of-transcript prompt, ENCDEC_NEW greedy new tokens in the
+    decoder's ENCDEC_MAX_SEQ context, through ``prefill`` / ``serve_step``
+    (the serve launcher refuses enc-dec, as the JAX package's does).  The
+    prefill launches the flash kernel once per encoder layer (non-causal,
+    1,500 keys unpadded) and twice per decoder layer (causal; cross over
+    the 1,500 frames), all on wgmma, each held against the plain version;
+    the first encoder launch rerun with its keys zero-padded to 1,536 (the
+    planted fault) must fail the check.  Prefill + decode against one
+    forward in bf16 and fp32 within ENCDEC_E2E_TOL, and with each
+    request's decode reading the next request's cross caches past it.  The
+    encoder's and the cross-attention's launch shapes timed alone."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ENCDEC_ARCH)
+    params, init_s, gib = seeded_params(cfg, dev, 31)
+    gen = torch.Generator(device=dev).manual_seed(32)
+    frames = torch.randn((ENCDEC_BATCH, cfg.enc_frames, cfg.d_model),
+                         generator=gen, device=dev)
+    toks = torch.as_tensor(np.tile(ENCDEC_PROMPT, (ENCDEC_BATCH, 1)),
+                           device=dev).long()
+    log(f"[encdec] {ENCDEC_ARCH}: {cfg.enc_layers} encoder + {cfg.n_layers} "
+        f"decoder layers, {cfg.param_count():,} parameters, {gib:.2f} GiB of "
+        f"fp32 weights made on the card in {init_s:.1f}s")
+    flash_layers = cfg.enc_layers + 2 * cfg.n_layers
+    r = direct_wave(FK, cfg, params, toks, ENCDEC_NEW, ENCDEC_MAX_SEQ,
+                    {"frames": frames}, lambda n: {}, flash_layers)
+    # the prefill's work is the encoder's: frames, not prompt tokens
+    r["prefill_frames_per_s"] = (ENCDEC_BATCH * cfg.enc_frames
+                                 / r["served"]["prefill_s"])
+    log_direct("encdec", f"{ENCDEC_ARCH} wave of {ENCDEC_BATCH} x "
+               f"{cfg.enc_frames} frames, prompt {len(ENCDEC_PROMPT)}, "
+               f"{ENCDEC_NEW} new, max_seq {ENCDEC_MAX_SEQ} (the prefill "
+               f"{r['prefill_frames_per_s']:,.0f} frames/s)", r, card)
+    # launch order: the encoder's layers, then each decoder layer's self-
+    # and cross-attention
+    captured = r.pop("captured")
+    enc, cross = captured[0], captured[cfg.enc_layers + 1]
+    for name, (q, k, v, kw, _, _), Sq in (("encoder", enc, cfg.enc_frames),
+                                          ("cross", cross, 128)):
+        if kw["causal"] or q.shape[1] < Sq or k.shape[1] != cfg.enc_frames:
+            raise AssertionError(f"the {name} launch is not non-causal over "
+                                 f"the 1,500 frames: q {tuple(q.shape)}, k "
+                                 f"{tuple(k.shape)}, {kw}")
+    # the planted fault: the encoder launch over keys zero-padded to 1,536
+    q, k, v, kw, o, _ = enc
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 36))
+    want = FK.flash_attention_plain(q, k, v, **kw)
+    fault = flash_check(FK.flash_attention_cuda(q, pad(k), pad(v), **kw),
+                        want)
+    if not fault[1] > 1:
+        raise AssertionError(f"the check passed keys zero-padded to 1,536: "
+                             f"{fault}")
+    log(f"[encdec] the encoder launch (q {tuple(q.shape)}, k "
+        f"{tuple(k.shape)}) with keys zero-padded to 1,536 (planted fault): "
+        f"max |err| {fault[0]:.3g}, {fault[1]:.2f} of the limits (fails, as "
+        f"it must)")
+    alone = {}
+    for name, (q, k, v, kw, _, _), Sq in (
+            ("encoder", enc, cfg.enc_frames),
+            ("cross", cross, len(ENCDEC_PROMPT))):
+        alone[name] = flash_alone(FK, q, k, v, kw, Sq)
+        a = alone[name]
+        log(f"[encdec] flash at the {name} shape (B, Sq, Sk, H, KV, dh) "
+            f"{a['shape']}, q padded to {q.shape[1]}, bf16, non-causal: "
+            f"kernel {a['ms']:.4f} ms, plain {a['plain_ms']:.4f}, "
+            f"scaled_dot_product_attention {a['library_ms']:.4f} (timed "
+            f"only); bound {a['bound_ms']:.4f} ms ({a['bound_by']}), the "
+            f"kernel at {100 * a['bound_ms'] / a['ms']:.2f}% of it; card: "
+            f"{card}")
+    del captured, enc, cross, q, k, v, want
+    chks = {}
+    for dt in ENCDEC_E2E_TOL:
+        c = cfg if dt == "bfloat16" else cfg.replace(
+            compute_dtype=dt, cache_dtype=dt)
+        rows = LM_E2E_ROWS
+        chks[dt] = encdec_e2e(
+            c, params, frames[:rows], toks[:rows], ENCDEC_NEW, dev,
+            served=({"outs": r["served"]["outs"][:rows],
+                     "logits": r["served"]["logits"]}
+                    if c is cfg else None))
+    check_e2e(ENCDEC_ARCH, chks, ENCDEC_E2E_TOL, card, tag="encdec")
+    bad = {dt: encdec_e2e(cfg if dt == "bfloat16" else cfg.replace(
+        compute_dtype=dt, cache_dtype=dt), params, frames[:LM_E2E_ROWS],
+        toks[:LM_E2E_ROWS], ENCDEC_NEW, dev, fault=True)
+        for dt in ENCDEC_E2E_TOL}
+    check_e2e(ENCDEC_ARCH, bad, ENCDEC_E2E_TOL, card, tag="encdec",
+              fault="decode reading the next request's cross caches")
+    out = {k: r[k] for k in ("launches", "max_abs_err", "share",
+                             "prefill_tps", "prefill_frames_per_s",
+                             "decode_tps", "peak_gib")}
+    out.update(params=cfg.param_count(), launch_ms=sum(r["launch_ms"])
+               / len(r["launch_ms"]), prefill_s=r["served"]["prefill_s"],
+               decode_s=r["served"]["decode_s"], fault_share=fault[1],
+               alone=alone,
+               e2e={dt: {k: c[k] for k in ("max", "mean", "logit_std")}
+                    for dt, c in chks.items()},
+               e2e_fault={dt: {k: c[k] for k in ("max", "mean")}
+                          for dt, c in bad.items()})
+    del params, frames, r
+    free_card()
+    return out
+
+
+def phase_vlm_serve(FK, dev, card):
+    """Phase 19b: qwen2-vl-7b whole at published widths, seeded fp32
+    weights: a wave of LM_BATCH x LM_PROMPT tokens, LM_NEW new, whose first
+    VLM_GRID**2 positions are seeded patch embeddings laid out on a
+    VLM_GRID x VLM_GRID grid by M-RoPE (:func:`mrope_grid_positions`),
+    through ``prefill`` / ``serve_step`` (each step given its token's
+    M-RoPE positions).  The prefill launches the flash kernel once per
+    layer (G 7, dh 128, causal), all on wgmma, each held against the plain
+    version.  Prefill + decode against one forward in bf16 and fp32 within
+    VLM_E2E_TOL, and with the decode steps given no M-RoPE positions (the
+    planted fault) past them."""
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config(VLM_ARCH)
+    params, init_s, gib = seeded_params(cfg, dev, 41)
+    gen = torch.Generator(device=dev).manual_seed(42)
+    toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                         generator=gen, device=dev)
+    P = VLM_GRID * VLM_GRID
+    patches = torch.randn((LM_BATCH, P, cfg.d_model), generator=gen,
+                          device=dev)
+    mpos = torch.as_tensor(mrope_grid_positions(
+        LM_BATCH, LM_PROMPT + LM_NEW, VLM_GRID), device=dev)
+    log(f"[vlm] {VLM_ARCH}: {cfg.n_layers} layers, {cfg.param_count():,} "
+        f"parameters, {gib:.2f} GiB of fp32 weights made on the card in "
+        f"{init_s:.1f}s")
+    r = direct_wave(FK, cfg, params, toks, LM_NEW, LM_MAX_SEQ,
+                    {"patch_embeds": patches, "mrope_pos": mpos[:, :LM_PROMPT]},
+                    lambda n: {"mrope_pos": mpos[:, n:n + 1]}, cfg.n_layers)
+    log_direct("vlm", f"{VLM_ARCH} wave of {LM_BATCH} x {LM_PROMPT} tokens "
+               f"({P} patch embeddings on a {VLM_GRID} x {VLM_GRID} M-RoPE "
+               f"grid), {LM_NEW} new, max_seq {LM_MAX_SEQ}", r, card)
+    q = r["captured"][0][0]
+    shape = tuple(q.shape) + (r["captured"][0][1].shape[2],)
+    del r["captured"], q
+    free_card()
+    rows = LM_E2E_ROWS
+    chks = {}
+    for dt in VLM_E2E_TOL:
+        c = cfg if dt == "bfloat16" else cfg.replace(
+            compute_dtype=dt, cache_dtype=dt)
+        chks[dt] = vlm_e2e(c, params, toks[:rows], patches[:rows], LM_NEW,
+                           VLM_GRID, dev, served=(
+                               {"outs": r["served"]["outs"][:rows],
+                                "logits": r["served"]["logits"]}
+                               if c is cfg else None))
+    check_e2e(VLM_ARCH, chks, VLM_E2E_TOL, card, tag="vlm")
+    bad = {dt: vlm_e2e(cfg if dt == "bfloat16" else cfg.replace(
+        compute_dtype=dt, cache_dtype=dt), params, toks[:rows],
+        patches[:rows], LM_NEW, VLM_GRID, dev, fault=True)
+        for dt in VLM_E2E_TOL}
+    check_e2e(VLM_ARCH, bad, VLM_E2E_TOL, card, tag="vlm",
+              fault="decode without M-RoPE positions")
+    B, S, H, dh, KV = shape
+    out = {k: r[k] for k in ("launches", "max_abs_err", "share",
+                             "prefill_tps", "decode_tps", "peak_gib")}
+    out.update(params=cfg.param_count(), launch_ms=sum(r["launch_ms"])
+               / len(r["launch_ms"]), bound_ms=attention_bound(
+                   B, S, S, H, KV, dh, True)[0],
+               prefill_s=r["served"]["prefill_s"],
+               decode_s=r["served"]["decode_s"],
+               e2e={dt: {k: c[k] for k in ("max", "mean", "logit_std")}
+                    for dt, c in chks.items()},
+               e2e_fault={dt: {k: c[k] for k in ("max", "mean")}
+                          for dt, c in bad.items()})
+    del params, r
+    free_card()
+    return out
+
+
+def moved_with_gradient(state, start, prefixes):
+    """How many leaves under ``prefixes`` (key paths) of a train state
+    moved from the parameters ``start`` with a nonzero first moment;
+    raises on one that did not."""
+    import torch
+    from repro_torch.tree import key_paths
+    start = dict(key_paths(start))
+    m1 = dict(key_paths(state["opt"]["m"]))
+    moved = 0
+    for key, a in key_paths(state["params"]):
+        if not key.startswith(prefixes):
+            continue
+        if torch.equal(a, start[key]) or not bool(m1[key].ne(0).any()):
+            raise AssertionError(f"{key} did not move with a gradient")
+        moved += 1
+    return moved
+
+
+def phase_encdec_vlm_train(FK, dev, card):
+    """Phase 19c: ``launch.train.main`` on whisper-base whole
+    (ENCDEC_TRAIN_BATCH x ENCDEC_TRAIN_SEQ tokens on zero frames, as the
+    JAX launcher trains it) and on qwen2-vl-7b at VLM_TRAIN_LAYERS of its
+    28 layers (text, VLM_TRAIN_BATCH x TRAIN_SEQ), ENCDEC_TRAIN_STEPS and
+    VLM_TRAIN_STEPS steps under ``"dots"``: finite losses; the flash
+    kernel on wgmma for every attention of each forward (twice a step
+    under ``"dots"``), each launch of step 0 held against the plain
+    version; every leaf of the layers (whisper: both stacks, the
+    cross-attention among them) moved with a gradient.  Step ms, tokens/s,
+    peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model_fns
+
+    out = {}
+    for arch, batch, steps, layers, seq, prefixes in (
+            (ENCDEC_ARCH, ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_STEPS, None,
+             ENCDEC_TRAIN_SEQ, ("['layers']", "['enc_layers']")),
+            (VLM_ARCH, VLM_TRAIN_BATCH, VLM_TRAIN_STEPS, VLM_TRAIN_LAYERS,
+             TRAIN_SEQ, ("['layers']",))):
+        cfg = get_config(arch)
+        if layers:
+            cfg = cfg.replace(n_layers=layers)
+        per_forward = cfg.enc_layers + 2 * cfg.n_layers if (
+            cfg.family == "encdec") else cfg.n_layers
+        per_step = per_forward * (1 if cfg.remat_policy == "everything"
+                                  else 2)
+        m = train_main_run(FK, arch, batch, steps, layers, capture=per_step,
+                           seq=seq)
+        state, captured = m.pop("state"), m.pop("captured")
+        want = per_step * steps
+        if (FK.LAUNCHES["flash_attention"] != want
+                or FK.PATH_LAUNCHES["wgmma"] != want):
+            raise AssertionError(f"{arch}: {steps} steps launched the flash "
+                                 f"bodies {FK.PATH_LAUNCHES}, not wgmma "
+                                 f"{want} times")
+        moved = moved_with_gradient(
+            state, get_model_fns(cfg).init_params(cfg, 0, dev), prefixes)
+        err, share, where, _ = hold_launches(FK, captured, dev)
+        del state, captured
+        free_card()
+        m.update(launches=want, max_abs_err=err, share=share,
+                 params=cfg.param_count())
+        log(f"[{cfg.family}] train {arch}"
+            + (f", {layers} of {get_config(arch).n_layers} layers" if layers
+               else " whole")
+            + f" ({cfg.param_count():,} parameters), {batch} x {seq} "
+            f"tokens, {steps} steps in {m['wall_s']:.1f}s: loss "
+            f"{m['losses'][0]:.4f} -> {m['losses'][-1]:.4f}; step "
+            f"{m['step_ms']:.1f} ms, {m['tokens_per_s']:,.0f} tokens/s, peak "
+            f"memory {m['peak_gib']:.2f} GiB; flash launches {want} on wgmma; "
+            f"{moved} leaves of the layers moved with a gradient; step 0's "
+            f"{per_step} launches = plain: max |err| {err:.3g}, worst share "
+            f"{share:.3f} of the elementwise limit, {where}; card: {card}")
+        out[cfg.family] = m
     return out
 
 
@@ -2868,9 +3431,10 @@ def run_train_main(argv):
                 for a, b, c in TRAIN_LINE.findall(text)]
 
 
-def train_main_run(FK, arch, batch, steps, layers=None, capture=0):
+def train_main_run(FK, arch, batch, steps, layers=None, capture=0,
+                   seq=TRAIN_SEQ):
     """``launch.train.main`` on ``arch`` (cut to ``layers`` layers through
-    the launcher's ``get_config`` when given), B ``batch`` x S TRAIN_SEQ,
+    the launcher's ``get_config`` when given), B ``batch`` x S ``seq``,
     ``steps`` steps, with the launch counts set to 0 just before it; the
     first ``capture`` flash launches are copied to the host as ``(q, k, v,
     o, kw)``.  Raises unless it exits 0 with a finite loss logged at every
@@ -2905,7 +3469,7 @@ def train_main_run(FK, arch, batch, steps, layers=None, capture=0):
     try:
         rc, rows = run_train_main(
             ["--arch", arch, "--global-batch", str(batch), "--seq",
-             str(TRAIN_SEQ), "--steps", str(steps), "--log-every", "1"])
+             str(seq), "--steps", str(steps), "--log-every", "1"])
     finally:
         T.get_config, T.train = real_get, real_train
         FK.flash_attention_cuda = launch
@@ -2918,7 +3482,7 @@ def train_main_run(FK, arch, batch, steps, layers=None, capture=0):
         raise AssertionError(f"{arch}: non-finite loss {losses}")
     step_ms = statistics.median(r[2] for r in rows[1:])
     return dict(losses=losses, step_ms=step_ms, wall_s=wall,
-                tokens_per_s=batch * TRAIN_SEQ / (step_ms / 1e3),
+                tokens_per_s=batch * seq / (step_ms / 1e3),
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                 state=kept.pop("state"), captured=captured)
 
@@ -3808,9 +4372,22 @@ def main() -> int:
                                    "zamba2": hybrid_served,
                                    "train": ssm_trained}))
 
+    # 19. the enc-dec and VLM families at published widths: whisper-base
+    # (the flash kernel on its encoder, decoder and cross-attention) and
+    # qwen2-vl-7b (M-RoPE) served whole, whisper trained whole and qwen2-vl
+    # at 4 of 28 layers
+    t0 = time.perf_counter()
+    encdec_served = phase_encdec_serve(FK, dev, card)
+    vlm_served = phase_vlm_serve(FK, dev, card)
+    ev_trained = phase_encdec_vlm_train(FK, dev, card)
+    log(f"[encdec] phase 19 in {time.perf_counter() - t0:.1f}s on {card}")
+    log("[slice14] " + json.dumps({"whisper": encdec_served,
+                                   "qwen2vl": vlm_served,
+                                   "train": ev_trained}))
+
     log(f"[time] all phases in {time.perf_counter() - t_start:.1f}s")
 
-    # 19. report
+    # 20. report
     src = "src/repro_torch/kernels/wfa/csrc/wfa.cu"
     kernels = []
     for name, variant in (("wfa_score", "score"), ("wfa_trace", "trace")):
@@ -3898,20 +4475,28 @@ def main() -> int:
         # the main paths: the serve launcher's two prefills, the 2,048-token
         # wave's prefill, the train launcher's forwards (12 steps), phi's
         # served prefill and its 3 training steps, zamba2's launcher
-        # prefills, served prefill and 3 training steps
+        # prefills, served prefill and 3 training steps, whisper's and
+        # qwen2-vl's served prefills and their 3 training steps
         "launches": (serve_launches + served["launches"] + trained["launches"]
                      + moe_served["naive"]["launches"]
                      + moe_trained["launches"]
                      + hybrid_served["main_launches"]
                      + hybrid_served["launches"]
-                     + hybrid_trained["launches"]),
+                     + hybrid_trained["launches"]
+                     + encdec_served["launches"] + vlm_served["launches"]
+                     + ev_trained["encdec"]["launches"]
+                     + ev_trained["vlm"]["launches"]),
         "max_abs_err": max(max(flash_worst.values()), flash["max_abs_err"],
                            served["max_abs_err"], trained["max_abs_err"],
                            moe_served["naive"]["max_abs_err"],
                            moe_trained["max_abs_err"],
                            hybrid_served["max_abs_err"],
                            hybrid_served["flash"]["max_abs_err"],
-                           hybrid_trained["max_abs_err"]),
+                           hybrid_trained["max_abs_err"],
+                           encdec_served["max_abs_err"],
+                           vlm_served["max_abs_err"],
+                           ev_trained["encdec"]["max_abs_err"],
+                           ev_trained["vlm"]["max_abs_err"]),
         # the largest share of a limit (max |err| against 3e-5 / 2e-2; in
         # bf16 also each |err| against 2 ulps of |want| plus a row floor)
         # over the grid, the served shape, the prefill launches and the
@@ -3923,7 +4508,11 @@ def main() -> int:
                                     moe_trained["share"],
                                     hybrid_served["share"],
                                     hybrid_served["flash"]["share"],
-                                    hybrid_trained["share"]),
+                                    hybrid_trained["share"],
+                                    encdec_served["share"],
+                                    vlm_served["share"],
+                                    ev_trained["encdec"]["share"],
+                                    ev_trained["vlm"]["share"]),
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         # the other bodies on the same inputs: mma.sync (the yardstick of
         # the wgmma design) and the fp32 pipes (fp32, other head dims)
@@ -3965,7 +4554,33 @@ def main() -> int:
                        "ms", "plain_ms", "bound_ms", "bound_by",
                        "library_ms")},
                    "prefill_share": hybrid_served["share"],
-                   "training_share": hybrid_trained["share"]}})
+                   "training_share": hybrid_trained["share"]},
+        # whisper-base (bf16, dh 64, G 1, wgmma): its served prefill's
+        # launches (6 encoder, non-causal over 1,500 frames; 6 causal; 6
+        # cross over 1,500 frames), ms a launch by CUDA events, the
+        # encoder's and the cross-attention's launch shapes alone (the
+        # kernel, the plain version, scaled_dot_product_attention timed
+        # only, the bound of the real rows' work), the planted fault's
+        # share (keys zero-padded to 1,536) and its 3 training steps
+        "encdec": {"prefill_launches": encdec_served["launches"],
+                   "prefill_launch_ms": encdec_served["launch_ms"],
+                   "prefill_share": encdec_served["share"],
+                   "padded_keys_share": encdec_served["fault_share"],
+                   **{name: {k: a[k] for k in (
+                       "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms")} for name, a in
+                      encdec_served["alone"].items()},
+                   "training_launches": ev_trained["encdec"]["launches"],
+                   "training_share": ev_trained["encdec"]["share"]},
+        # qwen2-vl-7b (bf16, dh 128, G 7, wgmma, causal, M-RoPE): its
+        # served prefill's launches, ms a launch by CUDA events and the
+        # bound at that shape, and its 3 training steps at 4 layers
+        "vlm": {"prefill_launches": vlm_served["launches"],
+                "prefill_launch_ms": vlm_served["launch_ms"],
+                "prefill_bound_ms": vlm_served["bound_ms"],
+                "prefill_share": vlm_served["share"],
+                "training_launches": ev_trained["vlm"]["launches"],
+                "training_share": ev_trained["vlm"]["share"]}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

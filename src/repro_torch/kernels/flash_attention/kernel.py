@@ -24,9 +24,13 @@ launch, and never falls back), CPU tensors run
 - ``"fp32_pipes"`` (``flash_kernel``): fp32, other head dims, unaligned
   bases.
 
-All take ``Sq % block_q == 0 == Sk % block_k`` as the TPU kernel does
-(``ops.py`` pads); the blocks shape the plain version's tiles, while the
-CUDA bodies pick their own.  :data:`LAUNCHES` counts kernel launches and
+All take ``Sq % block_q == 0`` and, under ``causal``, ``Sk % block_k ==
+0`` as the TPU kernel does (``ops.py`` pads).  Non-causal calls take any
+``Sk``: the CUDA bodies give keys at or past ``Sk`` weight 0 and the plain
+version's last key tile is the shorter remainder, so the model path hands
+an encoder's or a cross-attention's keys over unpadded
+(``ops.flash_attention_ragged``).  The blocks shape the plain version's
+tiles, while the CUDA bodies pick their own.  :data:`LAUNCHES` counts kernel launches and
 :data:`PATH_LAUNCHES` the body each of them ran.
 """
 from __future__ import annotations
@@ -69,7 +73,7 @@ def select_body(dtype, dh: int, aligned: bool, body=None) -> str:
     return body
 
 
-def _check(q, k, v, block_q: int, block_k: int):
+def _check(q, k, v, block_q: int, block_k: int, causal: bool):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q must be [B,Sq,H,dh] and k, v [B,Sk,KV,dh]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -83,17 +87,18 @@ def _check(q, k, v, block_q: int, block_k: int):
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} is {t.dtype} on {t.device}, q "
                              f"{q.dtype} on {q.device}")
-    if Sq % block_q or Sk % block_k:
+    if Sq % block_q or (causal and Sk % block_k):
         raise ValueError(f"Sq {Sq} and Sk {Sk} must be multiples of "
-                         f"block_q {block_q} and block_k {block_k} "
-                         f"(ops.flash_attention pads)")
+                         f"block_q {block_q} and block_k {block_k} (Sk "
+                         f"only under causal; ops.flash_attention pads)")
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           block_q: int = 512, block_k: int = 512):
     """Plain PyTorch version of the kernel (any device): the TPU kernel's
-    blocked online softmax, one (q block, k block) tile at a time."""
-    _check(q, k, v, block_q, block_k)
+    blocked online softmax, one (q block, k block) tile at a time; a
+    non-causal call's last key tile holds the ``Sk % block_k`` keys left."""
+    _check(q, k, v, block_q, block_k, causal)
     B, Sq, H, dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -142,7 +147,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     control of the checks, ``None`` in every real call."""
     from repro_torch.kernels.flash_attention import build
 
-    _check(q, k, v, block_q, block_k)
+    _check(q, k, v, block_q, block_k, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got "
                          f"{q.device}")

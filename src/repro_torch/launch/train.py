@@ -12,6 +12,11 @@ attention runs on the CUDA flash-attention kernel through
         --steps 20 --seq 64 --ckpt-dir ck --simulate-failure 10
     python -m repro_torch.launch.train --device cpu --arch qwen3-0.6b-smoke \\
         --steps 20 --seq 64 --ckpt-dir ck --resume
+    python -m repro_torch.launch.train --device cpu --arch whisper-base-smoke \\
+        --steps 4 --seq 32
+
+An enc-dec model (whisper) trains on zero frames, as in the JAX package;
+a VLM (qwen2-vl) on text alone.
 
 ``--device`` says where the model runs (default ``cuda``, which must
 exist).  A simulated failure exits with code 42.  The JAX package's mesh
@@ -24,6 +29,8 @@ import argparse
 import sys
 import time
 from typing import Optional
+
+import numpy as np
 
 from repro_torch import checkpoint as ckpt
 from repro_torch.configs import get_config, smoke_config
@@ -95,6 +102,9 @@ def train(cfg: ModelConfig, *, steps: int, global_batch: int, seq_len: int,
     try:
         for step in range(start_step, steps):
             batch = batch_for_step(spec, step)
+            if cfg.family == "encdec":
+                batch["frames"] = np.zeros(
+                    (global_batch, cfg.enc_frames, cfg.d_model), np.float32)
             t0 = time.perf_counter()
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])

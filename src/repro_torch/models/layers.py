@@ -1,5 +1,5 @@
-"""Transformer building blocks: norms, RoPE, GQA and MLA attention and the
-MLP (the JAX package's ``models/layers.py``).
+"""Transformer building blocks: norms, RoPE and M-RoPE, GQA, cross- and MLA
+attention and the MLP (the JAX package's ``models/layers.py``).
 
 Parameters are nested dicts of tensors under the JAX package's names, kept
 in ``cfg.param_dtype`` and cast to ``cfg.compute_dtype`` at each use;
@@ -11,6 +11,19 @@ autograd through :class:`FlashAttention`, whose backward recomputes that
 scan; decode attention over the cache stays on :func:`_sdpa`, as in the
 JAX package.  MLA (deepseek-v2) runs as plain products and softmax in
 prefill, training and decode alike, as in the JAX package.
+
+Two choices differ from the JAX package in how, not in what, they compute:
+
+- An encoder's self-attention and a decoder's cross-attention over the
+  encoder's keys (whisper) run through the flash kernel, non-causal, where
+  the JAX package runs ``_sdpa`` over an all-true mask: the same function.
+  A cross-attention decode step (one query) stays on :func:`_sdpa`.
+- The public wrapper ``kernels.flash_attention.flash_attention`` keeps the
+  JAX wrapper's ``ValueError`` for non-causal keys that are not a block
+  multiple; :class:`FlashAttention` instead sends non-causal attention to
+  ``flash_attention_ragged``, which pads only the queries and passes the
+  kernel the real key length (1,500 frames for whisper), since zero keys
+  with no mask would each add ``exp(0 - m)`` to the denominator.
 """
 from __future__ import annotations
 
@@ -21,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention_ragged
 from repro_torch.models.common import ModelConfig
 
 NEG_INF = -1e30
@@ -54,16 +68,33 @@ def head_rmsnorm(w, x, eps):
 
 
 # --------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
+
+
+def _freqs(half, theta, device):
+    exps = -torch.arange(half, dtype=torch.float32, device=device) / half
+    return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device),
+                     exps)
 
 
 def rope_cos_sin(pos, dim, theta, dtype):
     """pos [..., ] int -> cos/sin [..., dim//2]: angles in fp32, then cast."""
+    ang = pos.float()[..., None] * _freqs(dim // 2, theta, pos.device)
+    return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+
+
+def mrope_cos_sin(pos3, dim, theta, sections, dtype):
+    """M-RoPE (qwen2-vl): pos3 [..., 3] int -> cos/sin [..., dim//2].  The
+    frequency slots fall into (temporal, height, width) sections of
+    ``sections`` slots; slot i takes its position from its section."""
     half = dim // 2
-    exps = -torch.arange(half, dtype=torch.float32, device=pos.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=pos.device), exps)
-    ang = pos.float()[..., None] * freqs
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to "
+                         f"dim // 2 = {half}")
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=pos3.device),
+        torch.tensor(list(sections), device=pos3.device))
+    ang = pos3.float()[..., sec_id] * _freqs(half, theta, pos3.device)
     return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
 
 
@@ -138,10 +169,11 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
 
 
 def sdpa_chunked(q, k, v, cfg: ModelConfig, *, causal=True):
-    """The JAX package's full-sequence attention (``gqa_forward``): one
-    :func:`_sdpa` over the sequence, or one per block of ``cfg.q_chunk``
-    queries when the sequence is longer; positions from 0."""
-    S = q.shape[1]
+    """The JAX package's full-sequence attention (``gqa_forward``,
+    ``cross_attn_forward``): one :func:`_sdpa` over the queries, or one per
+    block of ``cfg.q_chunk`` queries when there are more; positions from 0.
+    Keys may outnumber queries (cross-attention) when not ``causal``."""
+    S, Sk = q.shape[1], k.shape[1]
     pos = torch.arange(S, device=q.device)
     chunk = cfg.q_chunk if S > cfg.q_chunk else S
     if S % chunk:
@@ -151,7 +183,8 @@ def sdpa_chunked(q, k, v, cfg: ModelConfig, *, causal=True):
         if causal:
             mask = pos[i:i + chunk, None] >= pos[None, :]
         else:
-            mask = torch.ones((chunk, S), dtype=torch.bool, device=q.device)
+            mask = torch.ones((chunk, Sk), dtype=torch.bool,
+                              device=q.device)
         outs.append(_sdpa(q[:, i:i + chunk], k, v, mask, cfg))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
@@ -161,8 +194,10 @@ class FlashAttention(torch.autograd.Function):
     forward and a gradient: ``FlashAttention.apply(q, k, v, cfg, causal)``.
 
     The forward is :func:`flash_attention` whole (padding to block
-    multiples, the kernel, the slice back): on the card the hand-written
-    CUDA body, on the CPU its plain version.  It saves the unpadded
+    multiples, the kernel, the slice back), or for non-causal attention
+    ``flash_attention_ragged`` (queries padded, keys as they are): on the
+    card the hand-written CUDA body, on the CPU its plain version.  It
+    saves the unpadded
     ``q, k, v``.  The backward recomputes the attention through the plain
     differentiable path, :func:`sdpa_chunked` (the JAX package's ``_sdpa``
     and its ``q_chunk`` scan, with the same causal mask from position 0),
@@ -174,7 +209,9 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, cfg: ModelConfig, causal: bool = True):
         ctx.save_for_backward(q, k, v)
         ctx.cfg, ctx.causal = cfg, causal
-        return flash_attention(q, k, v, causal=causal, device=q.device)
+        if causal:
+            return flash_attention(q, k, v, causal=True, device=q.device)
+        return flash_attention_ragged(q, k, v, device=q.device)
 
     @staticmethod
     def backward(ctx, do):
@@ -185,20 +222,27 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def _rope(cfg: ModelConfig, pos):
+def _rope(cfg: ModelConfig, pos, mrope_pos=None):
+    """None without RoPE (whisper); M-RoPE from ``mrope_pos`` [B,S,3] when
+    the config has it and it is given, else RoPE from ``pos``."""
     if cfg.rope_theta == 0:
         return None
+    if cfg.mrope and mrope_pos is not None:
+        return mrope_cos_sin(mrope_pos, cfg.d_head, cfg.rope_theta,
+                             cfg.mrope_sections, cfg.cdtype())
     return rope_cos_sin(pos, cfg.d_head, cfg.rope_theta, cfg.cdtype())
 
 
-def gqa_forward(p, h, cfg: ModelConfig, pos, *, causal=True,
+def gqa_forward(p, h, cfg: ModelConfig, pos, *, causal=True, mrope_pos=None,
                 return_kv=False):
     """Full-sequence attention (training / prefill). h [B,S,D], pos [B,S]
-    (``arange(S)`` per row: the kernel's causal mask starts at position 0),
-    through :class:`FlashAttention` (with grad off it records no graph).
+    (``arange(S)`` per row: the kernel's causal mask starts at position 0,
+    as the JAX package's mask does, also under M-RoPE), ``mrope_pos``
+    [B,S,3] the M-RoPE positions or None, through :class:`FlashAttention`
+    (with grad off it records no graph).
     """
     c = cfg.cdtype()
-    q, k, v = _qkv(p, h, cfg, _rope(cfg, pos))
+    q, k, v = _qkv(p, h, cfg, _rope(cfg, pos, mrope_pos))
     out = FlashAttention.apply(q, k, v, cfg, causal)
     y = _out(out, p["wo"], c)
     if return_kv:
@@ -207,14 +251,16 @@ def gqa_forward(p, h, cfg: ModelConfig, pos, *, causal=True,
     return y
 
 
-def gqa_decode(p, h, cfg: ModelConfig, cache_k, cache_v, cache_len: int):
+def gqa_decode(p, h, cfg: ModelConfig, cache_k, cache_v, cache_len: int, *,
+               mrope_pos=None):
     """One-token decode. h [B,1,D]; cache_[kv] [B,Smax,KV,dh]; cache_len an
-    int.  Writes the new K/V into row ``cache_len`` of the caches in place
-    (the JAX package returns updated copies) -> (y, cache_k, cache_v)."""
+    int; ``mrope_pos`` [B,1,3] the new token's M-RoPE positions or None.
+    Writes the new K/V into row ``cache_len`` of the caches in place (the
+    JAX package returns updated copies) -> (y, cache_k, cache_v)."""
     c = cfg.cdtype()
     B = h.shape[0]
     pos = torch.full((B, 1), cache_len, dtype=torch.int32, device=h.device)
-    q, k, v = _qkv(p, h, cfg, _rope(cfg, pos))
+    q, k, v = _qkv(p, h, cfg, _rope(cfg, pos, mrope_pos))
     cache_k[:, cache_len:cache_len + 1] = k.to(cache_k.dtype)
     cache_v[:, cache_len:cache_len + 1] = v.to(cache_v.dtype)
     Smax = cache_k.shape[1]
@@ -222,6 +268,31 @@ def gqa_decode(p, h, cfg: ModelConfig, cache_k, cache_v, cache_len: int):
              <= cache_len)[None, None, None, None, :]
     out = _sdpa(q, cache_k.to(c), cache_v.to(c), valid, cfg)
     return _out(out, p["wo"], c), cache_k, cache_v
+
+
+def cross_attn_forward(p, h, cfg: ModelConfig, enc_k, enc_v, *,
+                       decode=False):
+    """Decoder cross-attention over the encoder's K/V, no mask. h [B,S,D];
+    enc_k / enc_v [B,T,KV,dh].  Through :class:`FlashAttention`
+    (non-causal, the keys unpadded), or for a ``decode`` step's one query
+    through :func:`_sdpa`, as :func:`gqa_decode` runs."""
+    c = cfg.cdtype()
+    q = _proj(h, p["wq"], c)
+    ek, ev = enc_k.to(c), enc_v.to(c)
+    if decode:
+        mask = torch.ones((1, 1, 1, h.shape[1], ek.shape[1]),
+                          dtype=torch.bool, device=h.device)
+        out = _sdpa(q, ek, ev, mask, cfg)
+    else:
+        out = FlashAttention.apply(q, ek, ev, cfg, False)
+    return _out(out, p["wo"], c)
+
+
+def encode_kv(p, enc_h, cfg: ModelConfig):
+    """The encoder states' cross-attention K/V. enc_h [B,T,D] ->
+    [B,T,KV,dh] each, in the compute dtype."""
+    c = cfg.cdtype()
+    return _proj(enc_h, p["wk"], c), _proj(enc_h, p["wv"], c)
 
 
 # --------------------------------------------------------------------------

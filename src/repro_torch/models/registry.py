@@ -6,9 +6,9 @@
 ``make_train_step`` and ``init_train_state``; ``batch_specs(cfg, shape)``
 returns ``device="meta"`` tensors (the counterpart of ``ShapeDtypeStruct``)
 for the inputs of the loss (``train_*``) or of prefill (``prefill_*``), and
-``synth_batch`` a concrete seeded batch of the same shapes.  The port has
-the dense, MoE, SSM and hybrid families (GQA or MLA attention); enc-dec and
-VLM raise ``NotImplementedError``.
+``synth_batch`` a concrete seeded batch of the same shapes.  Every family
+of the JAX package is here: enc-dec from ``models/encdec.py``, the others
+from ``models/transformer.py``.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.models import encdec as ENCDEC
 from repro_torch.models import transformer as TFM
 from repro_torch.models.common import ModelConfig, ShapeSpec
 from repro_torch.optim.adamw import AdamWConfig
@@ -43,6 +44,11 @@ class ModelFns:
 
 
 def get_model_fns(cfg: ModelConfig) -> ModelFns:
+    if cfg.family == "encdec":
+        return ModelFns(init_params=ENCDEC.init_params,
+                        loss_fn=ENCDEC.loss_fn, prefill=ENCDEC.prefill,
+                        serve_step=ENCDEC.serve_step,
+                        init_cache=ENCDEC.init_cache, forward=ENCDEC.forward)
     TFM._ported(cfg)
     return ModelFns(init_params=TFM.init_params, loss_fn=TFM.loss_fn,
                     prefill=TFM.prefill, serve_step=TFM.serve_step,
@@ -51,21 +57,32 @@ def get_model_fns(cfg: ModelConfig) -> ModelFns:
 
 def batch_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
     """Inputs of loss/train for ``train_*`` or of prefill for
-    ``prefill_*``, as ``device="meta"`` int32 tensors."""
-    TFM._ported(cfg)
+    ``prefill_*``, as ``device="meta"`` tensors: int32 tokens, an enc-dec
+    model's ``frames`` and a VLM's ``patch_embeds`` in the compute dtype, a
+    VLM's int32 ``mrope_pos``."""
+    get_model_fns(cfg)
     B, S = shape.global_batch, shape.seq_len
-    meta = lambda: torch.empty((B, S), dtype=torch.int32, device="meta")
-    specs = {"tokens": meta()}
+    meta = lambda *s, dtype=torch.int32: torch.empty(s, dtype=dtype,
+                                                     device="meta")
+    specs = {"tokens": meta(B, S)}
     if shape.kind == "train":
-        specs["targets"] = meta()
+        specs["targets"] = meta(B, S)
+    if cfg.family == "encdec":
+        specs["frames"] = meta(B, cfg.enc_frames, cfg.d_model,
+                               dtype=cfg.cdtype())
+    if cfg.family == "vlm":
+        specs["patch_embeds"] = meta(B, cfg.n_patches, cfg.d_model,
+                                     dtype=cfg.cdtype())
+        specs["mrope_pos"] = meta(B, S, 3)
     return specs
 
 
 def synth_batch(cfg: ModelConfig, shape: ShapeSpec, seed: int = 0,
                 batch_override: Optional[int] = None) -> Dict[str, Any]:
-    """Concrete synthetic batch matching batch_specs (numpy int32; the
-    JAX package's numbers for the same seed)."""
-    TFM._ported(cfg)
+    """Concrete synthetic batch matching batch_specs (numpy: int32 ids and
+    positions, fp32 frames and patch embeddings; the JAX package's numbers
+    for the same seed, drawn in the same order)."""
+    get_model_fns(cfg)
     rng = np.random.default_rng(seed)
     B = batch_override or shape.global_batch
     S = shape.seq_len
@@ -74,4 +91,13 @@ def synth_batch(cfg: ModelConfig, shape: ShapeSpec, seed: int = 0,
     if shape.kind == "train":
         batch["targets"] = np.concatenate(
             [toks[:, 1:], np.full((B, 1), -1, np.int32)], axis=1)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (B, cfg.enc_frames, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = rng.standard_normal(
+            (B, cfg.n_patches, cfg.d_model)).astype(np.float32)
+        pos = np.broadcast_to(np.arange(S, dtype=np.int32)[None, :, None],
+                              (B, S, 3))
+        batch["mrope_pos"] = np.ascontiguousarray(pos)
     return batch

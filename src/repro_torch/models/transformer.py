@@ -1,7 +1,8 @@
-"""Decoder-only LM of the dense, MoE, SSM and hybrid families, with GQA or
-MLA attention (the JAX package's ``models/transformer.py``): init, forward,
-the loss and the train step, prefill, the KV / state cache and the
-one-token decode step.
+"""Decoder-only LM of the dense, MoE, SSM, hybrid and VLM families, with
+GQA or MLA attention (the JAX package's ``models/transformer.py``): init,
+forward, the loss and the train step, prefill, the KV / state cache and the
+one-token decode step.  The enc-dec family (whisper) is
+``models/encdec.py``, which shares the train step and the remat here.
 
 Parameters are a nested dict of tensors under the JAX package's names, with
 ``layers`` a list of per-layer dicts (the JAX package stacks them on a
@@ -15,16 +16,16 @@ after every ``cfg.hybrid_attn_every``-th layer, the segments of
 :func:`_hybrid_segments`.  PyTorch runs the layers in a Python loop, head
 layers first.  The KV and state caches are updated in place by
 :func:`serve_step` (the JAX package returns a new cache), which keeps one
-copy of them on the card.
+copy of them on the card.  A VLM (qwen2-vl) takes ``patch_embeds`` [B, P,
+D], which overwrite the first P positions' token embeddings, and
+``mrope_pos`` [B, S, 3], its M-RoPE positions (``serve_step``: [B, 1, 3]);
+without them it runs on text with plain RoPE, as in the JAX package.
 
 Training: with grad enabled each block runs under ``torch.utils.
 checkpoint`` by ``cfg.remat_policy`` (the JAX package's ``jax.checkpoint``
 policies) and its attention through ``layers.FlashAttention``;
 :func:`make_train_step` differentiates :func:`loss_fn` and applies AdamW,
 updating the state's tensors in place.
-
-Other families (enc-dec, VLM) raise ``NotImplementedError``: they wait in
-ROADMAP §1's queue.
 """
 from __future__ import annotations
 
@@ -46,14 +47,17 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+
+
 def _ported(cfg: ModelConfig) -> None:
-    """Raise for the families the port does not run yet."""
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
-            or cfg.attn_kind not in ("gqa", "mla") or cfg.mrope):
+    """Raise for a configuration this module does not run (enc-dec runs in
+    ``models/encdec.py``)."""
+    if cfg.family not in FAMILIES or cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense, MoE, SSM and hybrid "
-            f"families (GQA or MLA attention); {cfg.family}/{cfg.attn_kind} "
-            f"models wait in ROADMAP §1's queue (enc-dec, VLM)")
+            f"{cfg.name}: models/transformer.py runs the "
+            f"{', '.join(FAMILIES)} families (GQA or MLA attention), not "
+            f"{cfg.family}/{cfg.attn_kind}")
 
 
 def _is_ssm(cfg: ModelConfig) -> bool:
@@ -157,10 +161,11 @@ def _run_order(cfg: ModelConfig, params):
 
 def params_from_reference(tree, device=None) -> Dict[str, Any]:
     """The JAX package's parameter tree (numpy or JAX arrays, as
-    ``init_train_state(...)[0]["params"]`` gives it, ``layers`` stacked on
-    a leading axis, ``head_layers`` a list of unstacked layers, a hybrid's
-    ``shared_attn`` unstacked) -> the port's parameters on ``device``
-    (``None``: the card)."""
+    ``init_train_state(...)[0]["params"]`` gives it, ``layers`` and an
+    enc-dec model's ``enc_layers`` stacked on a leading axis,
+    ``head_layers`` a list of unstacked layers, a hybrid's ``shared_attn``
+    unstacked) -> the port's parameters on ``device`` (``None``: the
+    card), each stack a list of layers."""
     dev = resolve_device(device)
 
     def conv(x):
@@ -174,10 +179,13 @@ def params_from_reference(tree, device=None) -> Dict[str, Any]:
         return {k: layer(v, i) if isinstance(v, dict) else v[i]
                 for k, v in tree.items()}
 
-    out = {k: conv(v) for k, v in tree.items() if k != "layers"}
-    stacked = conv(tree["layers"])
-    n = tree_leaves(stacked)[0].shape[0]
-    out["layers"] = [layer(stacked, i) for i in range(n)]
+    stacks = ("layers", "enc_layers")
+    out = {k: conv(v) for k, v in tree.items() if k not in stacks}
+    for name in stacks:
+        if name in tree:
+            stacked = conv(tree[name])
+            n = tree_leaves(stacked)[0].shape[0]
+            out[name] = [layer(stacked, i) for i in range(n)]
     return out
 
 
@@ -185,12 +193,13 @@ def params_from_reference(tree, device=None) -> Dict[str, Any]:
 # Full-sequence path
 
 
-def _block_fwd(cfg: ModelConfig, blk, h, pos, *, return_cache=False):
+def _block_fwd(cfg: ModelConfig, blk, h, pos, mrope_pos=None, *,
+               return_cache=False):
     """One block, full sequence -> (h, MoE aux loss; 0 for a dense or SSM
     block), and with ``return_cache`` the layer's cache entries: ``(k, v)``
     for GQA, ``(c_kv, k_rope)`` for MLA, the fp32 SSM state and the conv
     tail for an SSM block.  A hybrid's shared block runs here as a dense
-    GQA block."""
+    GQA block.  ``mrope_pos``: a VLM's M-RoPE positions, or None."""
     zero = lambda: torch.zeros((), dtype=torch.float32, device=h.device)
     if "ssm" in blk:
         a = L.rmsnorm(blk["norm"], h, cfg.rms_eps)
@@ -199,8 +208,11 @@ def _block_fwd(cfg: ModelConfig, blk, h, pos, *, return_cache=False):
             return h + y[0], zero(), y[1]
         return h + y, zero()
     a = L.rmsnorm(blk["ln1"], h, cfg.rms_eps)
-    attn = L.mla_forward if cfg.attn_kind == "mla" else L.gqa_forward
-    y = attn(blk["attn"], a, cfg, pos, return_kv=return_cache)
+    if cfg.attn_kind == "mla":
+        y = L.mla_forward(blk["attn"], a, cfg, pos, return_kv=return_cache)
+    else:
+        y = L.gqa_forward(blk["attn"], a, cfg, pos, mrope_pos=mrope_pos,
+                          return_kv=return_cache)
     if return_cache:
         y, kv = y
     h = h + y
@@ -224,20 +236,21 @@ def _save_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _block_remat(cfg: ModelConfig, blk, h, pos):
-    """One block under ``cfg.remat_policy`` -> (h, aux): ``"everything"``
-    keeps every activation; ``"nothing"`` recomputes the whole block in the
-    backward; ``"dots"`` recomputes all but the projections.  Blocks draw
-    no random numbers, so no RNG state is kept."""
+def remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, one block, under ``cfg.remat_policy``:
+    ``"everything"`` keeps every activation; ``"nothing"`` recomputes the
+    whole block in the backward; ``"dots"`` recomputes all but the
+    projections.  Blocks draw no random numbers, so no RNG state is
+    kept."""
     if cfg.remat_policy == "everything" or not torch.is_grad_enabled():
-        return _block_fwd(cfg, blk, h, pos)
+        return fn(*args)
     kw = {}
     if cfg.remat_policy == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_dots)
     elif cfg.remat_policy != "nothing":
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
-    return checkpoint(_block_fwd, cfg, blk, h, pos, use_reentrant=False,
+    return checkpoint(fn, *args, use_reentrant=False,
                       preserve_rng_state=False, **kw)
 
 
@@ -248,11 +261,17 @@ def _logits(params, cfg: ModelConfig, h):
     return h @ params["unembed"]["w"].to(c)
 
 
-def _embed(params, cfg: ModelConfig, tokens):
+def _embed(params, cfg: ModelConfig, tokens, patch_embeds=None):
+    """Token embeddings in the compute dtype; a VLM's ``patch_embeds`` [B,
+    P, D] take the place of the first P positions'."""
     # F.embedding: PyTorch does not list its CUDA backward among the
     # nondeterministic operations, and the restart drill needs the same
     # bits from the same inputs
-    return F.embedding(tokens, params["embed"]["w"]).to(cfg.cdtype())
+    h = F.embedding(tokens, params["embed"]["w"]).to(cfg.cdtype())
+    if cfg.family == "vlm" and patch_embeds is not None:
+        P = patch_embeds.shape[1]
+        h = torch.cat([patch_embeds.to(h), h[:, P:]], dim=1)
+    return h
 
 
 def _positions(tokens):
@@ -261,20 +280,23 @@ def _positions(tokens):
                         device=tokens.device)[None].expand(B, S)
 
 
-def forward(params, cfg: ModelConfig, tokens):
+def forward(params, cfg: ModelConfig, tokens, *, patch_embeds=None,
+            mrope_pos=None):
     """Full forward. tokens [B,S] -> (logits [B,S,Vp] in the compute dtype,
     the MoE aux loss summed over the layers, fp32).  Head layers run first
     and outside remat, as in the JAX package; a hybrid's shared block runs
-    after each full segment, under the same remat policy."""
+    after each full segment, under the same remat policy.  A VLM's
+    ``patch_embeds`` and ``mrope_pos`` as in :func:`_embed` and
+    ``layers.gqa_forward``."""
     _ported(cfg)
     pos = _positions(tokens)
-    h = _embed(params, cfg, tokens)
+    h = _embed(params, cfg, tokens, patch_embeds)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for blk in params.get("head_layers", []):
-        h, aux = _block_fwd(cfg, blk, h, pos)
+        h, aux = _block_fwd(cfg, blk, h, pos, mrope_pos)
         aux_total = aux_total + aux
     for _, blk in _run_order(cfg, params):
-        h, aux = _block_remat(cfg, blk, h, pos)
+        h, aux = remat(cfg, _block_fwd, cfg, blk, h, pos, mrope_pos)
         aux_total = aux_total + aux
     h = L.rmsnorm(params["final_norm"], h, cfg.rms_eps)
     return _logits(params, cfg, h), aux_total
@@ -284,19 +306,26 @@ def forward(params, cfg: ModelConfig, tokens):
 # Loss / train step
 
 
-def loss_fn(params, cfg: ModelConfig, batch):
+def cross_entropy(logits, targets):
     """Mean next-token cross-entropy over ``targets >= 0``, from fp32
-    logits (log-sum-exp less the gold logit), plus ``router_aux_coef`` x
-    the aux loss / n_layers for MoE, as the JAX package's."""
-    logits, aux = forward(params, cfg, batch["tokens"])
+    logits (log-sum-exp less the gold logit)."""
     logits = logits.float()
-    targets = batch["targets"]
     mask = (targets >= 0).float()
     tgt = targets.clamp_min(0).long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
     nll = (logz - gold) * mask
-    loss = torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """:func:`cross_entropy`, plus ``router_aux_coef`` x the aux loss /
+    n_layers for MoE, as the JAX package's; a VLM batch may hold
+    ``patch_embeds`` and ``mrope_pos``."""
+    logits, aux = forward(params, cfg, batch["tokens"],
+                          patch_embeds=batch.get("patch_embeds"),
+                          mrope_pos=batch.get("mrope_pos"))
+    loss = cross_entropy(logits, batch["targets"])
     if cfg.is_moe:
         loss = loss + cfg.router_aux_coef * aux / max(1, cfg.n_layers)
     return loss
@@ -306,7 +335,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, n_micro: int,
                     grad_transform=None, loss=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
-    ``batch`` holds ``tokens`` and ``targets`` [B, S] (numpy or tensors);
+    ``batch`` holds ``tokens`` and ``targets`` [B, S] (numpy or tensors),
+    and what else the family's loss reads (``frames``, ``patch_embeds``,
+    ``mrope_pos``);
     with ``n_micro`` > 1 it splits into that many microbatches along B,
     whose fp32 gradients are summed and divided by ``n_micro``.  The state's
     parameters and moments are updated in place; ``metrics`` holds
@@ -411,10 +442,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
             for n, s in zip(_cache_names(cfg), shapes)}
 
 
-def _block_decode(cfg: ModelConfig, blk, h, c0, c1, cache_len: int):
+def _block_decode(cfg: ModelConfig, blk, h, c0, c1, cache_len: int,
+                  mrope_pos=None):
     """One block, one token; ``c0, c1`` the layer's cache rows (K and V,
     the latent and the rope key, or the SSM state and the conv tail),
-    written in place."""
+    written in place; ``mrope_pos`` a VLM's [B, 1, 3] or None."""
     if "ssm" in blk:
         a = L.rmsnorm(blk["norm"], h, cfg.rms_eps)
         y, (state, conv) = SSM.ssm_decode(blk["ssm"], a, cfg, c0, c1)
@@ -422,8 +454,11 @@ def _block_decode(cfg: ModelConfig, blk, h, c0, c1, cache_len: int):
         c1.copy_(conv)
         return h + y
     a = L.rmsnorm(blk["ln1"], h, cfg.rms_eps)
-    attn = L.mla_decode if cfg.attn_kind == "mla" else L.gqa_decode
-    y, _, _ = attn(blk["attn"], a, cfg, c0, c1, cache_len)
+    if cfg.attn_kind == "mla":
+        y, _, _ = L.mla_decode(blk["attn"], a, cfg, c0, c1, cache_len)
+    else:
+        y, _, _ = L.gqa_decode(blk["attn"], a, cfg, c0, c1, cache_len,
+                               mrope_pos=mrope_pos)
     h = h + y
     m = L.rmsnorm(blk["ln2"], h, cfg.rms_eps)
     if "moe" in blk:
@@ -431,19 +466,24 @@ def _block_decode(cfg: ModelConfig, blk, h, c0, c1, cache_len: int):
     return h + L.mlp_forward(blk["mlp"], m, cfg)
 
 
-def serve_step(params, cfg: ModelConfig, cache, token, cache_len: int):
+def serve_step(params, cfg: ModelConfig, cache, token, cache_len: int, *,
+               mrope_pos=None):
     """token [B] int; cache_len an int -> (logits [B,Vp] fp32, cache), the
     new cache entries written into ``cache`` in place: row ``cache_len``
     of K/V (and of a hybrid's ``attn_k`` / ``attn_v``), the whole SSM state
     and conv tail.  Head layers take cache rows 0 .. n_head - 1, the
-    stacked layers the rest; MoE routes the B tokens of the step."""
+    stacked layers the rest; MoE routes the B tokens of the step; a VLM's
+    ``mrope_pos`` [B, 1, 3] are the new token's M-RoPE positions (None:
+    plain RoPE at ``cache_len``; the JAX package's shared block of a
+    hybrid never takes them)."""
     _ported(cfg)
     cache_len = int(cache_len)
     h = _embed(params, cfg, token[:, None])
     n0, n1 = _cache_names(cfg)
     head = params.get("head_layers", [])
     for i, blk in enumerate(head):
-        h = _block_decode(cfg, blk, h, cache[n0][i], cache[n1][i], cache_len)
+        h = _block_decode(cfg, blk, h, cache[n0][i], cache[n1][i], cache_len,
+                          mrope_pos)
     app = 0
     for row, blk in _run_order(cfg, params):
         if row is None:         # a hybrid's shared block: its own K/V rows
@@ -451,13 +491,15 @@ def serve_step(params, cfg: ModelConfig, cache, token, cache_len: int):
             app += 1
         else:
             c0, c1 = cache[n0][len(head) + row], cache[n1][len(head) + row]
-        h = _block_decode(cfg, blk, h, c0, c1, cache_len)
+        h = _block_decode(cfg, blk, h, c0, c1, cache_len, mrope_pos)
     h = L.rmsnorm(params["final_norm"], h, cfg.rms_eps)
     return _logits(params, cfg, h)[:, 0].float(), cache
 
 
-def prefill(params, cfg: ModelConfig, tokens):
-    """tokens [B,S] -> (next-token logits [B,Vp] fp32, cache filled to S).
+def prefill(params, cfg: ModelConfig, tokens, *, patch_embeds=None,
+            mrope_pos=None):
+    """tokens [B,S] -> (next-token logits [B,Vp] fp32, cache filled to S);
+    a VLM's ``patch_embeds`` and ``mrope_pos`` as in :func:`forward`.
 
     The logits are those of the last position, S - 1, for every row: a
     shorter prompt padded at the end gets the logits of a pad position (and
@@ -466,13 +508,13 @@ def prefill(params, cfg: ModelConfig, tokens):
     long, the SSM state and conv tail those after position S - 1."""
     _ported(cfg)
     pos = _positions(tokens)
-    h = _embed(params, cfg, tokens)
+    h = _embed(params, cfg, tokens, patch_embeds)
     entries, shared_kv = [], []
     for blk in params.get("head_layers", []):
-        h, _, e = _block_fwd(cfg, blk, h, pos, return_cache=True)
+        h, _, e = _block_fwd(cfg, blk, h, pos, mrope_pos, return_cache=True)
         entries.append(e)
     for row, blk in _run_order(cfg, params):
-        h, _, e = _block_fwd(cfg, blk, h, pos, return_cache=True)
+        h, _, e = _block_fwd(cfg, blk, h, pos, mrope_pos, return_cache=True)
         (shared_kv if row is None else entries).append(e)
     h = L.rmsnorm(params["final_norm"], h, cfg.rms_eps)
     logits = _logits(params, cfg, h[:, -1:, :])

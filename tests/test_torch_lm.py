@@ -42,6 +42,7 @@ from repro_torch.kernels.flash_attention import kernel as t_fkernel  # noqa: E40
 from repro_torch.launch import serve as t_serve  # noqa: E402
 from repro_torch.models import get_model_fns as t_fns  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
+from torch_lm_ref import one_torch_thread  # noqa: E402,F401
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
@@ -244,13 +245,21 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_other_families_are_not_ported():
-    """Enc-dec and VLM wait in ROADMAP §1's queue; SSM and hybrid are
-    ported (``tests/test_torch_lm_ssm.py``)."""
-    for arch in ("qwen2-vl-7b", "whisper-base"):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1"):
-            t_fns(t_smoke(arch))
-    for arch in ("mamba2-780m", "zamba2-7b"):
-        assert t_fns(t_smoke(arch)).prefill is TT.prefill
+    """No family is left out of the port any more: every arch of
+    ``ARCH_NAMES`` gets its ``ModelFns``, enc-dec from ``models/encdec.py``
+    (``tests/test_torch_lm_encdec.py``), the rest, VLM included, from
+    ``models/transformer.py``; ``transformer`` still refuses enc-dec."""
+    from repro_torch.configs import ARCH_NAMES
+    from repro_torch.models import encdec as TE
+    assert len(ARCH_NAMES) == 10
+    for arch in ARCH_NAMES:
+        cfg = t_smoke(arch)
+        fns = t_fns(cfg)
+        want = TE if cfg.family == "encdec" else TT
+        assert (fns.prefill, fns.serve_step, fns.loss_fn) == (
+            want.prefill, want.serve_step, want.loss_fn), arch
+    with pytest.raises(NotImplementedError, match="not encdec"):
+        TT.init_cache(t_smoke("whisper-base"), 1, 8, device="cpu")
 
 
 def test_serve_launcher_cpu_without_jax():

@@ -29,10 +29,12 @@ the largest magnitude (bf16); caches within 1e-5 / 2**-5; loss within
 1e-5 / 1e-3; every gradient within 1e-5 / 2**-4 of its largest magnitude;
 ``grad_norm`` within 1e-5 / 2**-5 relative; the summed aux loss within
 1e-5 / 1e-2.
+
+The JAX package's results are jitted and computed once per model and
+dtype (``tests/torch_lm_ref.py``): the loss and gradients serve both the
+gradient test and the AdamW step's; the launchers run in one subprocess.
 """
 import os
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -57,11 +59,14 @@ from repro_torch.models import registry as t_registry  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.common import ShapeSpec  # noqa: E402
 from repro_torch.optim import adamw as t_adamw  # noqa: E402
-from repro_torch.tree import (key_paths, tree_leaves,  # noqa: E402
-                              tree_unflatten)
+from repro_torch.tree import key_paths, tree_leaves  # noqa: E402
+from torch_lm_ref import (SRC, close as _close, jax_grads,  # noqa: E402
+                          jax_params, jit_call, launcher_cases,
+                          one_torch_thread,
+                          lm_batch as _batch, memo, np_ as _np, port_grads,
+                          port_key as _port_key, run_launchers,
+                          tokens as _tokens)
 
-SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "src")
 PHI, DSV2 = "phi3.5-moe-42b-a6.6b", "deepseek-v2-lite-16b"
 GQA_HEAD = "gqa-head"
 ARCHS = (PHI, DSV2, GQA_HEAD)
@@ -87,9 +92,7 @@ class Pair:
     def __init__(self, arch, dtype, **kw):
         self.arch, self.dtype = arch, dtype
         self.jcfg, self.tcfg = _cfgs(arch, dtype, **kw)
-        state, _ = j_registry.get_model_fns(self.jcfg).init_train_state(
-            self.jcfg, jax.random.key(0))
-        self.jp = state["params"]
+        self.jp = jax_params(self.jcfg, arch)
         self.tp = TT.params_from_reference(
             jax.tree.map(np.asarray, self.jp), device="cpu")
         self.n_moe = self.jcfg.n_layers - (self.jcfg.first_k_dense
@@ -124,7 +127,8 @@ class _LaxRecorder:
 @pytest.fixture
 def jax_routes(monkeypatch):
     """``run(fn, *args)`` -> (fn's result, [(probs, routes)] of its MoE
-    calls in program order)."""
+    calls in program order); ``fn`` is traced afresh under the recorder
+    (``jit_call`` and ``jax_grads`` jit a new function each call)."""
     rec = _LaxRecorder()
     monkeypatch.setattr(JM, "lax", rec)
 
@@ -134,6 +138,17 @@ def jax_routes(monkeypatch):
         jax.effects_barrier()
         return out, list(rec.calls)
     return run
+
+
+def _grads_with_routes(pair, jax_routes, batch):
+    """The JAX package's loss and gradients on ``batch`` and the routes of
+    its forward, once per arch and dtype (the gradient test's and the
+    AdamW step's)."""
+    def run():
+        out, calls = jax_routes(jax_grads, JT.loss_fn, pair.jp, pair.jcfg,
+                                batch)
+        return out, calls[:pair.n_moe]   # the forward's; then the recompute
+    return memo((pair.arch, pair.dtype, "grads"), run)
 
 
 class _Routes:
@@ -187,41 +202,6 @@ class _Routes:
             differ, n, worst)
 
 
-def _np(x):
-    if isinstance(x, torch.Tensor):
-        return x.detach().float().numpy()
-    return np.asarray(jnp.asarray(x).astype(jnp.float32))
-
-
-def _close(got, want, tol, msg=""):
-    got, want = _np(got), _np(want)
-    assert got.shape == want.shape, msg
-    atol = tol.get("atol", 0.0) + tol.get("scale", 0.0) * np.abs(want).max()
-    np.testing.assert_allclose(got, want, rtol=0, atol=atol, err_msg=msg)
-
-
-def _tokens(B, S, seed, vocab=512):
-    return np.random.default_rng(seed).integers(0, vocab, size=(B, S)) \
-        .astype(np.int32)
-
-
-def _batch(B, S, seed):
-    toks = _tokens(B, S, seed)
-    targets = np.concatenate([toks[:, 1:], np.full((B, 1), -1, np.int32)],
-                             axis=1)
-    targets[0, 3] = -1
-    return {"tokens": toks, "targets": targets}
-
-
-def _port_key(jax_tree, key):
-    """The JAX leaf (``layers`` stacked) that the port's key path names."""
-    flat = dict(key_paths(jax.tree.map(np.asarray, jax_tree)))
-    if key.startswith("['layers']["):
-        i, rest = key[len("['layers']["):].split("]", 1)
-        return flat["['layers']" + rest][int(i)]
-    return flat[key]
-
-
 # ----------------------------------------------------------- the model ----
 
 
@@ -248,8 +228,8 @@ def test_forward(pair, jax_routes, monkeypatch):
     """Forward logits and the summed aux loss (the twin of
     ``test_forward_shapes_no_nan``)."""
     toks = _tokens(2, 40, 1)
-    (want, jaux), calls = jax_routes(JT.forward, pair.jp, pair.jcfg,
-                                     jnp.asarray(toks))
+    (want, jaux), calls = jax_routes(jit_call, JT.forward, pair.jcfg,
+                                     pair.jp, jnp.asarray(toks))
     assert len(calls) == pair.n_moe
     routes = _Routes(monkeypatch, pair.tp)
     routes.give(calls)
@@ -264,8 +244,8 @@ def test_forward(pair, jax_routes, monkeypatch):
 
 def test_prefill_and_cache(pair, jax_routes, monkeypatch):
     toks = _tokens(3, 37, 2)
-    (want, jc), calls = jax_routes(JT.prefill, pair.jp, pair.jcfg,
-                                   jnp.asarray(toks))
+    (want, jc), calls = jax_routes(jit_call, JT.prefill, pair.jcfg,
+                                   pair.jp, jnp.asarray(toks))
     routes = _Routes(monkeypatch, pair.tp)
     routes.give(calls)
     got, tc = TT.prefill(pair.tp, pair.tcfg, torch.as_tensor(toks).long())
@@ -285,8 +265,8 @@ def test_serve_step(pair, jax_routes, monkeypatch):
     """Prefill 20 tokens into a 32-row cache, then two decode steps: logits
     and cache (the twin of ``test_decode_step``)."""
     toks = _tokens(2, 20, 3)
-    (_, jpc), calls = jax_routes(JT.prefill, pair.jp, pair.jcfg,
-                                 jnp.asarray(toks))
+    (_, jpc), calls = jax_routes(jit_call, JT.prefill, pair.jcfg,
+                                 pair.jp, jnp.asarray(toks))
     jc = JT.init_cache(pair.jcfg, 2, 32)
     jc = {k: jax.lax.dynamic_update_slice_in_dim(v, jpc[k], 0, axis=2)
           for k, v in jc.items()}
@@ -301,7 +281,7 @@ def test_serve_step(pair, jax_routes, monkeypatch):
     tol = TOL[pair.dtype]
     for step, tok in enumerate(([5, 300], [17, 2])):
         (want, jc), calls = jax_routes(
-            JT.serve_step, pair.jp, pair.jcfg, jc,
+            jit_call, JT.serve_step, pair.jcfg, pair.jp, jc,
             jnp.asarray(tok, jnp.int32), jnp.int32(20 + step))
         routes.give(calls)
         got, tc = TT.serve_step(pair.tp, pair.tcfg, tc, torch.tensor(tok),
@@ -313,26 +293,16 @@ def test_serve_step(pair, jax_routes, monkeypatch):
     routes.check(pair.dtype)
 
 
-def _port_grads(tparams, tcfg, batch):
-    leaves = [p.detach().requires_grad_() for p in tree_leaves(tparams)]
-    loss = TT.loss_fn(tree_unflatten(tparams, leaves), tcfg,
-                      {k: torch.as_tensor(v) for k, v in batch.items()})
-    grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), tree_unflatten(tparams, list(grads))
-
-
 def test_loss_and_grads(pair, jax_routes, monkeypatch):
     """The loss with its aux term and the gradient of every parameter
     (router, experts, shared expert, MLA or GQA, head layers, norms,
     embeddings) against ``jax.value_and_grad``, under the model's
     ``"dots"`` remat."""
     batch = _batch(2, 32, 4)
-    (want_l, want_g), calls = jax_routes(
-        jax.value_and_grad(JT.loss_fn), pair.jp, pair.jcfg,
-        jax.tree.map(jnp.asarray, batch))
+    (want_l, want_g), calls = _grads_with_routes(pair, jax_routes, batch)
     routes = _Routes(monkeypatch, pair.tp)
-    routes.give(calls[:pair.n_moe])     # the forward's; then the recompute
-    got_l, got_g = _port_grads(pair.tp, pair.tcfg, batch)
+    routes.give(calls)
+    got_l, got_g = port_grads(TT.loss_fn, pair.tp, pair.tcfg, batch)
     tol = TOL[pair.dtype]
     assert abs(float(got_l) - float(want_l)) <= tol["loss"]
     names = set()
@@ -359,20 +329,22 @@ def test_loss_and_grads(pair, jax_routes, monkeypatch):
 
 def test_train_step(pair, jax_routes, monkeypatch):
     """One AdamW step (the twin of ``test_train_step``): loss, grad_norm
-    and lr against the JAX package's jitted step on the same parameters;
-    the step counts and the parameters move."""
+    and lr against the JAX package's step on the same parameters (its
+    ``make_train_step`` at one microbatch is ``value_and_grad`` of the
+    loss, then ``adamw_update``: here on the gradients of
+    :func:`test_loss_and_grads`); the step counts and the parameters
+    move."""
     opt = dict(lr=1e-3, warmup_steps=2, total_steps=8)
-    jstate = {"params": pair.jp, "opt": j_adamw.adamw_init(pair.jp),
-              "step": jnp.zeros((), jnp.int32)}
-    jstep = jax.jit(JT.make_train_step(pair.jcfg, j_adamw.AdamWConfig(**opt),
-                                       1))
-    batch = _batch(2, 32, 5)
-    (_, want), calls = jax_routes(jstep, jstate,
-                                  jax.tree.map(jnp.asarray, batch))
+    batch = _batch(2, 32, 4)
+    (loss, grads), calls = _grads_with_routes(pair, jax_routes, batch)
+    update = jax.jit(lambda p, g: j_adamw.adamw_update(
+        j_adamw.AdamWConfig(**opt), p, g, j_adamw.adamw_init(p),
+        jnp.zeros((), jnp.int32))[2])
+    want = {"loss": loss, **update(pair.jp, grads)}
     tstate = TT.train_state(TT.params_from_reference(
         jax.tree.map(np.asarray, pair.jp), device="cpu"))
     routes = _Routes(monkeypatch, tstate["params"])
-    routes.give(calls[:pair.n_moe])
+    routes.give(calls)
     before = [t.clone() for t in tree_leaves(tstate["params"])]
     tstep = TT.make_train_step(pair.tcfg, t_adamw.AdamWConfig(**opt), 1)
     tstate, got = tstep(tstate, batch)
@@ -473,35 +445,21 @@ def test_checkpoint_roundtrip_both_ways(tmp_path):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=k)
 
 
-def _run_without_jax(module, args, tmp_path):
-    code = (
-        "import runpy, sys\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['repro'] = None\n"
-        f"sys.argv = [{module!r}] + {args!r}\n"
-        f"runpy.run_module({module!r}, run_name='__main__')\n")
-    env = dict(os.environ, PYTHONPATH=SRC, TMPDIR=str(tmp_path))
-    return subprocess.run([sys.executable, "-c", code], env=env,
-                          capture_output=True, text=True, timeout=300)
+@pytest.fixture(scope="module")
+def launched(tmp_path_factory):
+    """Both launchers on both archs, in one subprocess without JAX."""
+    return run_launchers({**launcher_cases(PHI), **launcher_cases(DSV2)},
+                         tmp_path_factory.mktemp("launch"))
 
 
 @pytest.mark.parametrize("arch", [PHI, DSV2])
-def test_launchers_on_cpu_without_jax(arch, tmp_path):
+def test_launchers_on_cpu_without_jax(arch, launched):
     """``launch.serve`` and ``launch.train`` take the MoE archs with
     ``--device cpu``; JAX unimportable."""
-    out = _run_without_jax("repro_torch.launch.serve",
-                           ["--device", "cpu", "--arch", arch + "-smoke",
-                            "--requests", "3", "--batch", "2",
-                            "--max-new", "4"], tmp_path)
-    assert out.returncode == 0, out.stderr
-    assert "[serve] wave 1: [" in out.stdout
-    out = _run_without_jax("repro_torch.launch.train",
-                           ["--device", "cpu", "--arch", arch + "-smoke",
-                            "--steps", "2", "--seq", "32",
-                            "--global-batch", "2", "--log-every", "1"],
-                           tmp_path)
-    assert out.returncode == 0, out.stderr
-    assert "[train] step     1 loss" in out.stdout
+    rc, out = launched[f"serve {arch}"]
+    assert rc == 0 and "[serve] wave 1: [" in out
+    rc, out = launched[f"train {arch}"]
+    assert rc == 0 and "[train] step     1 loss" in out
 
 
 @pytest.mark.parametrize("arch", [PHI, DSV2])

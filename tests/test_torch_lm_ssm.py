@@ -28,10 +28,11 @@ one (the port's up to 1.35 x; the two bf16 gradients up to 1.60 x apart);
 the loss over 62 tokens moves by up to 1.9e-3 between the JAX package's
 bf16 and fp32 (and by 6e-4 between its eager and jitted bf16).  The fp32
 comparisons hold the port to the JAX package everywhere.
+
+The JAX package's results are jitted and computed once per model and
+dtype (``tests/torch_lm_ref.py``); the launchers run in one subprocess.
 """
 import os
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -55,11 +56,14 @@ from repro_torch.models import registry as t_registry  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.common import ShapeSpec  # noqa: E402
 from repro_torch.optim import adamw as t_adamw  # noqa: E402
-from repro_torch.tree import (key_paths, tree_leaves,  # noqa: E402
-                              tree_unflatten)
+from repro_torch.tree import key_paths, tree_leaves  # noqa: E402
+from torch_lm_ref import (SRC, close as _close, jax_grads,  # noqa: E402
+                          jit_call, launcher_cases, lm_batch as _batch,
+                          one_torch_thread,
+                          memo, port_grads, port_key as _port_key,
+                          run_launchers, scalar_close as _scalar_close,
+                          tokens as _tokens)
 
-SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "src")
 MAMBA, ZAMBA, TAIL = "mamba2-780m", "zamba2-7b", "zamba2-tail"
 ARCHS = (MAMBA, ZAMBA, TAIL)
 TOL = {"float32": dict(logits=dict(atol=1e-4), cache=dict(atol=1e-5),
@@ -76,17 +80,6 @@ def _cfgs(arch, dtype, **kw):
     return j_smoke(arch).replace(**kw), t_smoke(arch).replace(**kw)
 
 
-# the JAX package's results, shared by the tests of this module: the
-# parameters (fp32 in both dtypes) and each reference, by (arch, dtype, name)
-_MEMO = {}
-
-
-def _memo(key, fn):
-    if key not in _MEMO:
-        _MEMO[key] = fn()
-    return _MEMO[key]
-
-
 class Pair:
     """One model: both configs, the JAX parameters and the port's."""
 
@@ -98,13 +91,14 @@ class Pair:
             state, _ = j_registry.get_model_fns(self.jcfg).init_train_state(
                 self.jcfg, jax.random.key(0))
             return state["params"]
-        self.jp = _memo((arch, "params"), init)
+        # fp32 parameters in both dtypes, made once per arch
+        self.jp = memo((arch, "params"), init)
         self.tp = TT.params_from_reference(
             jax.tree.map(np.asarray, self.jp), device="cpu")
 
     def jax(self, name, jcfg, fn):
         """``fn(jcfg)``, once per arch, dtype and name."""
-        return _memo((self.arch, jcfg.compute_dtype, name), lambda: fn(jcfg))
+        return memo((self.arch, jcfg.compute_dtype, name), lambda: fn(jcfg))
 
     def ref(self, name, fn):
         """``fn(jcfg)`` for this dtype and, in bf16, for fp32 too ->
@@ -120,60 +114,6 @@ class Pair:
                 ids=lambda p: f"{p[0]}-{p[1]}")
 def pair(request):
     return Pair(*request.param)
-
-
-def _np(x):
-    if isinstance(x, torch.Tensor):
-        return x.detach().float().numpy()
-    return np.asarray(jnp.asarray(x).astype(jnp.float32))
-
-
-def _close(got, want, tol, msg="", want32=None):
-    """|got - want| within tol (``atol``, or ``scale`` x want's largest
-    magnitude); in bf16 (``want32`` the JAX package's fp32 result) or
-    |got - want32| within the larger of that and twice |want - want32|."""
-    got, want = _np(got), _np(want)
-    assert got.shape == want.shape, msg
-    atol = tol.get("atol", 0.0) + tol.get("scale", 0.0) * np.abs(want).max()
-    if want32 is not None and np.abs(got - want).max() > atol:
-        want32 = _np(want32)
-        atol = max(atol, 2 * float(np.abs(want - want32).max()))
-        want = want32
-    np.testing.assert_allclose(got, want, rtol=0, atol=atol, err_msg=msg)
-
-
-def _scalar_close(got, want, limit, want32=None, relative=False):
-    """A scalar within ``limit`` (absolute, or relative to want) of want;
-    in bf16 or of the fp32 value ``want32`` within the larger of that and
-    twice the JAX package's own distance from it."""
-    err = lambda a, b: abs(a / b - 1) if relative else abs(a - b)
-    got, want = float(got), float(want)
-    if want32 is not None and err(got, want) > limit:
-        limit = max(limit, 2 * err(want, float(want32)))
-        want = float(want32)
-    assert err(got, want) <= limit, (got, want, limit)
-
-
-def _tokens(B, S, seed, vocab=512):
-    return np.random.default_rng(seed).integers(0, vocab, size=(B, S)) \
-        .astype(np.int32)
-
-
-def _batch(B, S, seed):
-    toks = _tokens(B, S, seed)
-    targets = np.concatenate([toks[:, 1:], np.full((B, 1), -1, np.int32)],
-                             axis=1)
-    targets[0, 3] = -1
-    return {"tokens": toks, "targets": targets}
-
-
-def _port_key(jax_tree, key):
-    """The JAX leaf (``layers`` stacked) that the port's key path names."""
-    flat = dict(key_paths(jax.tree.map(np.asarray, jax_tree)))
-    if key.startswith("['layers']["):
-        i, rest = key[len("['layers']["):].split("]", 1)
-        return flat["['layers']" + rest][int(i)]
-    return flat[key]
 
 
 def _grow(jc, max_seq):
@@ -211,8 +151,8 @@ def test_params_from_reference(pair):
 
 def test_forward(pair):
     toks = _tokens(2, 64, 1)
-    (want, jaux), w32 = pair.ref("forward", lambda c: JT.forward(
-        pair.jp, c, jnp.asarray(toks)))
+    (want, jaux), w32 = pair.ref("forward", lambda c: jit_call(
+        JT.forward, c, pair.jp, jnp.asarray(toks)))
     got, taux = TT.forward(pair.tp, pair.tcfg, torch.as_tensor(toks).long())
     assert tuple(got.shape) == (2, 64, pair.tcfg.vocab_padded)
     assert got.dtype == pair.tcfg.cdtype() and bool(torch.isfinite(got).all())
@@ -227,8 +167,8 @@ def test_prefill_and_cache(pair):
     tol = TOL[pair.dtype]
     for B, S, seed in ((3, 64, 2), (2, 20, 3)):
         toks = _tokens(B, S, seed)
-        (want, jc), w32 = pair.ref(f"prefill{S}", lambda c: JT.prefill(
-            pair.jp, c, jnp.asarray(toks)))
+        (want, jc), w32 = pair.ref(f"prefill{S}", lambda c: jit_call(
+            JT.prefill, c, pair.jp, jnp.asarray(toks)))
         got, tc = TT.prefill(pair.tp, pair.tcfg, torch.as_tensor(toks).long())
         assert got.dtype == torch.float32
         _close(got, want, tol["logits"], want32=w32 and w32[0])
@@ -251,13 +191,14 @@ def test_serve_step(pair):
 
     def jax_steps(c):
         # the prefill test's (same tokens)
-        _, jc = pair.jax("prefill20", c, lambda c: JT.prefill(
-            pair.jp, c, jnp.asarray(toks)))
+        _, jc = pair.jax("prefill20", c, lambda c: jit_call(
+            JT.prefill, c, pair.jp, jnp.asarray(toks)))
         jc, out = _grow(jc, 32), []
+        step_fn = jax.jit(lambda p, cache, tok, n: JT.serve_step(
+            p, c, cache, tok, n))
         for step, tok in enumerate(([5, 300], [17, 2])):
-            logits, jc = JT.serve_step(pair.jp, c, jc,
-                                       jnp.asarray(tok, jnp.int32),
-                                       jnp.int32(20 + step))
+            logits, jc = step_fn(pair.jp, jc, jnp.asarray(tok, jnp.int32),
+                                 jnp.int32(20 + step))
             out.append((logits, jc))
         return out
 
@@ -283,29 +224,15 @@ def test_serve_step(pair):
                    want32=ref32 and ref32[1][key])
 
 
-def _jax_grads(jparams, jcfg, batch):
-    """The JAX package's loss and gradients (jitted: one compile)."""
-    fn = jax.jit(jax.value_and_grad(JT.loss_fn), static_argnums=1)
-    return fn(jparams, jcfg, jax.tree.map(jnp.asarray, batch))
-
-
-def _port_grads(tparams, tcfg, batch):
-    leaves = [p.detach().requires_grad_() for p in tree_leaves(tparams)]
-    loss = TT.loss_fn(tree_unflatten(tparams, leaves), tcfg,
-                      {k: torch.as_tensor(v) for k, v in batch.items()})
-    grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), tree_unflatten(tparams, list(grads))
-
-
 def test_loss_and_grads(pair):
     """The loss and the gradient of every parameter (every SSM leaf, the
     shared block's, norms, embeddings) against ``jax.value_and_grad``,
     under the models' ``"dots"`` remat."""
     assert pair.tcfg.remat_policy == "dots"
     batch = _batch(2, 64, 4)
-    (want_l, want_g), w32 = pair.ref("grads", lambda c: _jax_grads(
-        pair.jp, c, batch))
-    got_l, got_g = _port_grads(pair.tp, pair.tcfg, batch)
+    (want_l, want_g), w32 = pair.ref("grads", lambda c: jax_grads(
+        JT.loss_fn, pair.jp, c, batch))
+    got_l, got_g = port_grads(TT.loss_fn, pair.tp, pair.tcfg, batch)
     tol = TOL[pair.dtype]
     _scalar_close(got_l, want_l, tol["loss"], w32 and w32[0])
     names = set()
@@ -332,8 +259,8 @@ def test_train_step(pair):
     batch = _batch(2, 64, 4)
 
     def jax_step(c):
-        loss, grads = pair.jax("grads", c, lambda c: _jax_grads(
-            pair.jp, c, batch))
+        loss, grads = pair.jax("grads", c, lambda c: jax_grads(
+            JT.loss_fn, pair.jp, c, batch))
         update = jax.jit(lambda p, g: j_adamw.adamw_update(
             j_adamw.AdamWConfig(**opt), p, g, j_adamw.adamw_init(p),
             jnp.zeros((), jnp.int32))[2])
@@ -452,35 +379,21 @@ def test_checkpoint_roundtrip_both_ways(tmp_path):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=k)
 
 
-def _run_without_jax(module, args, tmp_path):
-    code = (
-        "import runpy, sys\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['repro'] = None\n"
-        f"sys.argv = [{module!r}] + {args!r}\n"
-        f"runpy.run_module({module!r}, run_name='__main__')\n")
-    env = dict(os.environ, PYTHONPATH=SRC, TMPDIR=str(tmp_path))
-    return subprocess.run([sys.executable, "-c", code], env=env,
-                          capture_output=True, text=True, timeout=300)
+@pytest.fixture(scope="module")
+def launched(tmp_path_factory):
+    """Both launchers on both archs, in one subprocess without JAX."""
+    return run_launchers({**launcher_cases(MAMBA), **launcher_cases(ZAMBA)},
+                         tmp_path_factory.mktemp("launch"))
 
 
 @pytest.mark.parametrize("arch", [MAMBA, ZAMBA])
-def test_launchers_on_cpu_without_jax(arch, tmp_path):
+def test_launchers_on_cpu_without_jax(arch, launched):
     """``launch.serve`` and ``launch.train`` take the SSM and hybrid archs
     with ``--device cpu``; JAX unimportable."""
-    out = _run_without_jax("repro_torch.launch.serve",
-                           ["--device", "cpu", "--arch", arch + "-smoke",
-                            "--requests", "3", "--batch", "2",
-                            "--max-new", "4"], tmp_path)
-    assert out.returncode == 0, out.stderr
-    assert "[serve] wave 1: [" in out.stdout
-    out = _run_without_jax("repro_torch.launch.train",
-                           ["--device", "cpu", "--arch", arch + "-smoke",
-                            "--steps", "2", "--seq", "32",
-                            "--global-batch", "2", "--log-every", "1"],
-                           tmp_path)
-    assert out.returncode == 0, out.stderr
-    assert "[train] step     1 loss" in out.stdout
+    rc, out = launched[f"serve {arch}"]
+    assert rc == 0 and "[serve] wave 1: [" in out
+    rc, out = launched[f"train {arch}"]
+    assert rc == 0 and "[train] step     1 loss" in out
 
 
 # The smoke models' bounds for chip_smoke's check, between what a sound

@@ -25,6 +25,7 @@ from repro.models import layers as JL  # noqa: E402
 from repro_torch.configs import smoke_config as t_smoke  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.tree import tree_map  # noqa: E402
+from torch_lm_ref import one_torch_thread  # noqa: E402,F401
 
 ARCH = "deepseek-v2-lite-16b"
 TOL = {"float32": dict(out=dict(atol=1e-5), cache=dict(atol=1e-5)),

@@ -33,6 +33,7 @@ from repro_torch.configs import get_config as t_get  # noqa: E402
 from repro_torch.configs import smoke_config as t_smoke  # noqa: E402
 from repro_torch.models import moe as TM  # noqa: E402
 from repro_torch.tree import tree_map  # noqa: E402
+from torch_lm_ref import one_torch_thread  # noqa: E402,F401
 
 ARCH = "phi3.5-moe-42b-a6.6b"
 FP32 = dict(y=1e-5, aux=1e-6, grad=1e-5)

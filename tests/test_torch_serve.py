@@ -5,6 +5,7 @@ failure contract, warm replays without new specialisations, and the
 ``serve_align`` launcher on the CPU."""
 import dataclasses
 import itertools
+import threading
 
 import numpy as np
 import pytest
@@ -198,11 +199,14 @@ def test_replay_equal_and_warm_replay_adds_no_specialisation():
 _calls = itertools.count()
 
 
-def _failing(after):
-    """A backend whose solver raises from its ``after``-th call on."""
+def _failing(after, gate):
+    """A backend whose solver raises from its ``after``-th call on, once
+    ``gate`` is set (so every request is admitted before the loop dies:
+    an offer after the failure is shed, ``server stopped``)."""
     state = {"n": 0}
 
     def fn(pattern, text, plen, tlen, *, pen, s_max, k_max):
+        gate.wait(60)
         state["n"] += 1
         if state["n"] > after:
             raise RuntimeError("injected backend failure")
@@ -215,12 +219,14 @@ def _failing(after):
 @pytest.mark.parametrize("after", [0, 2])
 def test_backend_failure_fails_pending_futures_and_poisons_the_loop(after):
     name = f"failing-{next(_calls)}"
-    t_backends.register_backend(name, _failing(after))
+    gate = threading.Event()
+    t_backends.register_backend(name, _failing(after, gate))
     try:
         eng = AlignmentEngine(backend=name, edit_frac=0.05, device="cpu")
         payloads = _requests(7, [4] * 8, lo=20, hi=40)
         server = ServeLoop(eng, wave_pairs=4, form_deadline=0.005).start()
         futs = [server.submit(p, t) for p, t in payloads]
+        gate.set()
         outcomes = []
         for f in futs:
             try:

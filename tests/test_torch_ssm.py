@@ -28,6 +28,7 @@ from repro.models import ssm as JS  # noqa: E402
 from repro_torch.configs import smoke_config as t_smoke  # noqa: E402
 from repro_torch.models import ssm as TS  # noqa: E402
 from repro_torch.tree import key_paths, tree_map  # noqa: E402
+from torch_lm_ref import one_torch_thread  # noqa: E402,F401
 
 ARCH = "mamba2-780m"
 TOL = {"float32": dict(atol=1e-5), "bfloat16": dict(scale=2 ** -5)}

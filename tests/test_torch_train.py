@@ -69,6 +69,7 @@ from repro_torch.optim import adamw as t_adamw  # noqa: E402
 from repro_torch.optim import compression as t_comp  # noqa: E402
 from repro_torch.tree import (key_paths, tree_leaves, tree_map,  # noqa: E402
                               tree_unflatten)
+from torch_lm_ref import one_torch_thread  # noqa: E402,F401
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
@@ -742,7 +743,8 @@ def _run_without_jax(module, args, tmp_path):
         "    bad = [m for m in sys.modules if sys.modules[m] is not None and"
         " (m.split('.')[0] in ('jax', 'repro'))]\n"
         "    assert not bad, bad\n")
-    env = dict(os.environ, PYTHONPATH=SRC, TMPDIR=str(tmp_path))
+    env = dict(os.environ, PYTHONPATH=SRC, TMPDIR=str(tmp_path),
+               OMP_NUM_THREADS="1")     # as one_torch_thread
     return subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=300)
 
