@@ -457,6 +457,21 @@ ENCDEC_E2E_TOL = {"bfloat16": {"max": 0.05, "mean": 0.0075},
                   "float32": {"max": 1e-3, "mean": 1e-4}}
 VLM_E2E_TOL = {"bfloat16": {"max": 0.5, "mean": 0.06},
                "float32": {"max": 1e-3, "mean": 1e-4}}
+# phase 20a, expert parallelism: phi3.5-moe at published widths, 4 of its
+# 32 layers (fp32 weights, 20 GiB), fp32 compute, moe_ep over a 1 x 4
+# ("data", "model") mesh of the one card: its 16 experts split 4 a shard,
+# the shards run in turn and the all-to-alls are copies between their
+# tensors.  At a capacity no slot can exceed (n_experts / top_k) each MoE
+# layer's output must equal the capacity path's on the same input within
+# EP_LAYER_TOL (tests/test_dryrun_lowering.py's bound for the JAX
+# package's two paths) and the prefill's logits within the fp32 bounds of
+# phases 18-19; at the published factor the two drop different slots by
+# design (capacity is per shard under EP), so their drops are printed.
+EP_LAYERS = 4
+EP_MESH = (1, 4)
+EP_LAYER_TOL = 1e-4
+EP_LOGITS_TOL = SSM_E2E_TOL["float32"]
+EP_TIMED = 3                  # CUDA-event repeats of one MoE layer, each path
 
 
 def log(*a):
@@ -4140,6 +4155,241 @@ def full_occupancy(K, S, lib):
     return out
 
 
+def moe_calls(MOE, fn):
+    """Run ``fn()`` with every ``MOE.moe_forward`` call recorded -> (its
+    result, [(params, x, y, stats)] per call)."""
+    real, calls = MOE.moe_forward, []
+
+    def recording(p, x, cfg, _=None):
+        stats = {}
+        y, aux = real(p, x, cfg, stats)
+        calls.append((p, x, y, stats))
+        return y, aux
+
+    MOE.moe_forward = recording
+    try:
+        return fn(), calls
+    finally:
+        MOE.moe_forward = real
+
+
+def phase_ep_prefill(FK, dev, card):
+    """Phase 20a: phi3.5-moe's prefill through ``get_model_fns(cfg).
+    prefill`` with ``moe_ep`` under ``use_mesh`` of a 1 x 4 mesh of the
+    card, EP_LAYERS layers at published widths, fp32, LM_BATCH x LM_PROMPT
+    tokens.  With the launch counts at 0 just before it: the flash kernel
+    once a layer (G 4, the fp32-pipe body), each launch held against the
+    plain version, and every MoE call on the expert-parallel path, each
+    shard's recorded all-to-alls the whole [MP, E_loc, C, D] buffer there
+    and back (2 x E x C x D x 4 B).  At the no-drop capacity each layer's
+    output against the capacity path on its own input (EP_LAYER_TOL) and
+    the logits against the capacity path's prefill (EP_LOGITS_TOL); at the
+    published factor each path's dropped slots; one layer of each path
+    timed by CUDA events."""
+    import statistics
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.registry import get_model_fns
+
+    published = get_config(MOE_ARCH).replace(n_layers=EP_LAYERS,
+                                              compute_dtype="float32")
+    no_drop = published.replace(
+        capacity_factor=published.n_experts / published.top_k)
+    params, init_s, gib = seeded_params(published, dev, 20)
+    fns = get_model_fns(published)
+    tokens = torch.as_tensor(np.random.default_rng(21).integers(
+        0, published.vocab_size, size=(LM_BATCH, LM_PROMPT)),
+        dtype=torch.int32, device=dev)
+    mesh = make_mesh(EP_MESH, ("data", "model"),
+                     devices=[dev] * int(np.prod(EP_MESH)))
+    MP, E, D = EP_MESH[1], published.n_experts, published.d_model
+
+    def prefill(cfg, ep):
+        def run():
+            with torch.inference_mode(), use_mesh(mesh if ep else None):
+                return fns.prefill(params, cfg.replace(moe_ep=ep),
+                                   tokens)[0]
+        return moe_calls(MOE, run)
+
+    # the main path: the counts at 0 just before, read just after
+    captured, restore = capture_flash(FK)
+    FK.reset_launches()
+    try:
+        logits_ep, calls = prefill(no_drop, True)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches = FK.LAUNCHES["flash_attention"]
+    body = FK.select_body(torch.float32, published.d_head, True)
+    if launches != EP_LAYERS or FK.PATH_LAUNCHES[body] != launches:
+        raise AssertionError(f"the EP prefill launched the flash kernel "
+                             f"{launches} times ({FK.PATH_LAUNCHES}), not "
+                             f"{EP_LAYERS} on {body}")
+    err, share, where = check_captured(FK, captured)
+    if len(calls) != EP_LAYERS or any("collectives" not in st
+                                      for *_, st in calls):
+        raise AssertionError(f"{len(calls)} MoE calls, not {EP_LAYERS} on "
+                             f"the expert-parallel path")
+    a2a = set()
+    for _, _, _, st in calls:
+        C = st["capacity"][0]
+        for m in range(MP):
+            got = sum(r["bytes"] for r in st["collectives"]
+                      if r["shard"] == m and r["kind"] == "all_to_all")
+            if got != 2 * E * C * D * 4:
+                raise AssertionError(f"shard {m} recorded {got:,} B of "
+                                     f"all-to-all, not 2 x {E} x {C} x {D} "
+                                     f"x 4 = {2 * E * C * D * 4:,}")
+            a2a.add(got)
+    layer_err = 0.0
+    with torch.inference_mode():
+        for p, x, y, _ in calls:
+            want, _ = MOE._moe_forward_pjit(p, x, no_drop)
+            layer_err = max(layer_err, float((y - want).abs().max()))
+    if not layer_err <= EP_LAYER_TOL:
+        raise AssertionError(f"an EP layer differs from the capacity path "
+                             f"by {layer_err:.3g} > {EP_LAYER_TOL}")
+    logits_cap, _ = prefill(no_drop, False)
+    diff = (logits_ep - logits_cap).abs()
+    lmax, lmean = float(diff.max()), float(diff.mean())
+    if not (lmax <= EP_LOGITS_TOL["max"] and lmean <= EP_LOGITS_TOL["mean"]
+            and bool(torch.isfinite(logits_ep).all())):
+        raise AssertionError(f"EP logits != the capacity path's: max "
+                             f"{lmax:.3g}, mean {lmean:.3g}")
+    # the published factor: capacity per shard (EP) or over all tokens
+    _, ep_pub = prefill(published, True)
+    _, cap_pub = prefill(published, False)
+    drops = {name: [int(st["dropped"][0]) for *_, st in c]
+             for name, c in (("ep", ep_pub), ("capacity", cap_pub))}
+    caps = {name: c[0][3]["capacity"][0] for name, c in
+            (("ep", ep_pub), ("capacity", cap_pub))}
+
+    # one MoE layer of each path at the prefill shape, CUDA events
+    p, x = calls[-1][0], calls[-1][1]
+
+    def layer_ms(ep):
+        cfg = published.replace(moe_ep=ep)
+        out = []
+        with torch.inference_mode(), use_mesh(mesh if ep else None):
+            MOE.moe_forward(p, x, cfg)
+            for _ in range(EP_TIMED):
+                a, b = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                a.record()
+                MOE.moe_forward(p, x, cfg)
+                b.record()
+                torch.cuda.synchronize()
+                out.append(a.elapsed_time(b))
+        return statistics.median(out)
+
+    ep_ms, cap_ms = layer_ms(True), layer_ms(False)
+    log(f"[ep] {MOE_ARCH}: {EP_LAYERS} of {get_config(MOE_ARCH).n_layers} "
+        f"layers, fp32, {gib:.2f} GiB of weights made in {init_s:.1f}s; "
+        f"prefill of {LM_BATCH} x {LM_PROMPT} tokens with moe_ep over a "
+        f"{EP_MESH[0]} x {EP_MESH[1]} (data, model) mesh of the card: "
+        f"{launches} flash launches on the {body} body = plain: max |err| "
+        f"{err:.3g} (tol {FLASH_TOL['float32']}), worst share {share:.3f}"
+        f"{'; ' + where if where else ''}")
+    log(f"[ep] no-drop capacity (factor {no_drop.capacity_factor}): each "
+        f"EP layer within {layer_err:.3g} of the capacity path on its input "
+        f"(tol {EP_LAYER_TOL}); logits max |d| {lmax:.3g} mean {lmean:.3g} "
+        f"(tol {EP_LOGITS_TOL['max']} / {EP_LOGITS_TOL['mean']}); each "
+        f"shard's all-to-all bytes {sorted(a2a)} = 2 x E x C x D x 4")
+    log(f"[ep] published factor {published.capacity_factor}: dropped slots "
+        f"per layer, EP (capacity {caps['ep']} a shard's expert) "
+        f"{drops['ep']}, capacity path (capacity {caps['capacity']}) "
+        f"{drops['capacity']}")
+    log(f"[ep] one MoE layer at {LM_BATCH} x {LM_PROMPT} tokens, median of "
+        f"{EP_TIMED} by CUDA events: expert-parallel {ep_ms:.3f} ms (4 "
+        f"shards in turn on one card), capacity path {cap_ms:.3f} ms, on "
+        f"{card}")
+    del params, calls, ep_pub, cap_pub
+    free_card()
+    return dict(launches=launches, max_abs_err=err, share=share,
+                layer_err=layer_err, logits_max=lmax, logits_mean=lmean,
+                a2a_bytes=sorted(a2a), drops=drops, capacity=caps,
+                ep_layer_ms=ep_ms, capacity_layer_ms=cap_ms)
+
+
+def phase_roofline_check(dev, card, trained):
+    """Phase 20b: the dry-run's trace of phase 16's training cell
+    (qwen3-0.6b, B TRAIN_BATCH x S TRAIN_SEQ, "dots") on a 1 x 1 fake mesh
+    against the card.  Its meta state must equal the real state on the
+    card leaf by leaf and its argument bytes the real bytes; its roofline
+    bound must not exceed phase 16's median step (a share above 1 would
+    mean the count is wrong).  Prints the dominant term, the model-FLOP
+    share and the predicted peak beside torch.cuda.max_memory_allocated
+    of phase 16's run."""
+    import torch
+    from repro_torch.analysis import roofline as R
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.lowering import build_lm_cell
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.common import ShapeSpec, model_flops
+    from repro_torch.models.registry import (abstract_train_state,
+                                             get_model_fns)
+    from repro_torch.tree import key_paths
+
+    cfg = get_config(LM_ARCH)
+    shape = ShapeSpec(f"train_b{TRAIN_BATCH}_s{TRAIN_SEQ}", TRAIN_SEQ,
+                      TRAIN_BATCH, "train")
+    mesh = Mesh((torch.device("meta"),), ("data", "model"), (1, 1))
+    free_card()
+    real, _ = get_model_fns(cfg).init_train_state(cfg, 0, dev)
+    meta, _ = abstract_train_state(cfg)
+    want = [(k, tuple(t.shape), t.dtype) for k, t in key_paths(real)]
+    got = [(k, tuple(t.shape), t.dtype) for k, t in key_paths(meta)]
+    if got != want:
+        diff = [(a, b) for a, b in zip(got, want) if a != b][:3]
+        raise AssertionError(f"meta state != the card's: {diff}")
+    real_bytes = sum(t.numel() * t.element_size()
+                     for _, t in key_paths(real))
+    del real
+    free_card()
+    cell = build_lm_cell(cfg, shape, mesh)
+    batch_bytes = 2 * TRAIN_BATCH * TRAIN_SEQ * 4      # tokens, targets
+    arg = DR.analytic_device_bytes(cell)
+    if arg != real_bytes + batch_bytes:
+        raise AssertionError(f"argument bytes {arg:,} != the card's state "
+                             f"{real_bytes:,} + batch {batch_bytes:,}")
+    t0 = time.perf_counter()
+    rec = DR.measure(cell, mesh)
+    traced_s = time.perf_counter() - t0
+    rec.update(status="ok", arch=LM_ARCH, shape=shape.name, n_devices=1,
+               model_flops=model_flops(cfg, shape))
+    t = R.terms(rec)
+    step_s = trained["step_ms"] / 1e3
+    if not t["bound_s"] <= step_s:
+        raise AssertionError(f"the roofline bound {t['bound_s']:.4f} s "
+                             f"exceeds the measured step {step_s:.4f} s")
+    share = rec["model_flops"] / (R.PEAK_FLOPS * step_s)
+    peak = rec["peak_bytes_per_device"]
+    log(f"[roofline] {LM_ARCH} train B {TRAIN_BATCH} x S {TRAIN_SEQ} traced "
+        f"on a 1 x 1 fake mesh in {traced_s:.1f}s (meta state = the card's "
+        f"leaf by leaf; argument bytes {arg:,} = the card's): compute "
+        f"{R.fmt_seconds(t['compute_s'])}, memory {R.fmt_seconds(t['memory_s'])}"
+        f" (flash-corrected {R.fmt_seconds(t['memory_flash_s'])}), "
+        f"collective {R.fmt_seconds(t['collective_s'])}: {t['dominant']}-"
+        f"bound at {t['bound_s'] * 1e3:.1f} ms against phase 16's median "
+        f"step {trained['step_ms']:.1f} ms ({t['bound_s'] / step_s:.3f} of "
+        f"it); model-FLOP share {100 * share:.2f}% (6ND "
+        f"{rec['model_flops']:.3e} over {R.PEAK_FLOPS / 1e12:.0f} TFLOP/s; "
+        f"phase 16's with "
+        f"attention {100 * trained['mfu']:.2f}%); predicted peak "
+        f"{peak / 2**30:.2f} GiB against torch.cuda.max_memory_allocated "
+        f"{trained['peak_gib']:.2f} GiB; {card}")
+    return dict(flops=rec["flops_per_device"], bytes=rec["bytes_per_device"],
+                arg_bytes=arg, dominant=t["dominant"], bound_ms=t["bound_s"]
+                * 1e3, step_ms=trained["step_ms"], bound_share=t["bound_s"]
+                / step_s, model_flop_share=share, peak_gib=peak / 2**30,
+                measured_peak_gib=trained["peak_gib"], trace_s=traced_s)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4385,9 +4635,18 @@ def main() -> int:
                                    "qwen2vl": vlm_served,
                                    "train": ev_trained}))
 
+    # 20. the last slice: expert parallelism on the card (phi3.5-moe's
+    # prefill with moe_ep over a 1 x 4 mesh of it) and the dry-run's
+    # roofline against phase 16's measured step
+    t0 = time.perf_counter()
+    ep = phase_ep_prefill(FK, dev, card)
+    roof = phase_roofline_check(dev, card, trained)
+    log(f"[slice15] phase 20 in {time.perf_counter() - t0:.1f}s on {card}")
+    log("[slice15] " + json.dumps({"ep": ep, "roofline": roof}))
+
     log(f"[time] all phases in {time.perf_counter() - t_start:.1f}s")
 
-    # 20. report
+    # 21. report
     src = "src/repro_torch/kernels/wfa/csrc/wfa.cu"
     kernels = []
     for name, variant in (("wfa_score", "score"), ("wfa_trace", "trace")):
@@ -4485,7 +4744,7 @@ def main() -> int:
                      + hybrid_trained["launches"]
                      + encdec_served["launches"] + vlm_served["launches"]
                      + ev_trained["encdec"]["launches"]
-                     + ev_trained["vlm"]["launches"]),
+                     + ev_trained["vlm"]["launches"] + ep["launches"]),
         "max_abs_err": max(max(flash_worst.values()), flash["max_abs_err"],
                            served["max_abs_err"], trained["max_abs_err"],
                            moe_served["naive"]["max_abs_err"],
@@ -4496,7 +4755,8 @@ def main() -> int:
                            encdec_served["max_abs_err"],
                            vlm_served["max_abs_err"],
                            ev_trained["encdec"]["max_abs_err"],
-                           ev_trained["vlm"]["max_abs_err"]),
+                           ev_trained["vlm"]["max_abs_err"],
+                           ep["max_abs_err"]),
         # the largest share of a limit (max |err| against 3e-5 / 2e-2; in
         # bf16 also each |err| against 2 ulps of |want| plus a row floor)
         # over the grid, the served shape, the prefill launches and the
@@ -4512,7 +4772,8 @@ def main() -> int:
                                     encdec_served["share"],
                                     vlm_served["share"],
                                     ev_trained["encdec"]["share"],
-                                    ev_trained["vlm"]["share"]),
+                                    ev_trained["vlm"]["share"],
+                                    ep["share"]),
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         # the other bodies on the same inputs: mma.sync (the yardstick of
         # the wgmma design) and the fp32 pipes (fp32, other head dims)
@@ -4575,6 +4836,9 @@ def main() -> int:
         # qwen2-vl-7b (bf16, dh 128, G 7, wgmma, causal, M-RoPE): its
         # served prefill's launches, ms a launch by CUDA events and the
         # bound at that shape, and its 3 training steps at 4 layers
+        # phi3.5-moe's expert-parallel prefill (fp32, G 4, the fp32-pipe
+        # body): its launches and their worst share
+        "ep": {"prefill_launches": ep["launches"], "share": ep["share"]},
         "vlm": {"prefill_launches": vlm_served["launches"],
                 "prefill_launch_ms": vlm_served["launch_ms"],
                 "prefill_bound_ms": vlm_served["bound_ms"],

@@ -467,10 +467,12 @@ def _band_width(band_cap, K):
 
 def _solve(pattern, text, plen, tlen, pen, s_max, k_max, heur, band_cap,
            packed, begin_state="M", end_state="M",
-           device=None) -> WFAResult:
+           device=None, left=None) -> WFAResult:
     """Shared ring solver behind :func:`wfa_scores` (score only) and
     :func:`wfa_scores_packed` (plus the packed backtrace); ``band_cap``
-    below ``K`` runs the compacting band."""
+    below ``K`` runs the compacting band.  ``left(score)`` says whether a
+    step is still to run (default: a pair of this batch is unscored)."""
+    left = left or (lambda score: bool((score < 0).any()))
     model, heur = _resolve(pen, heur)
     _check_states(model, begin_state, end_state)
     pattern, text, plen, tlen = _prep(pattern, text, plen, tlen, device)
@@ -510,7 +512,7 @@ def _solve(pattern, text, plen, tlen, pen, s_max, k_max, heur, band_cap,
                     for _ in range(3 if affine else 1))
 
     s = 1
-    while s <= s_max and bool((score < 0).any()):
+    while s <= s_max and left(score):
         if affine:
             out = _next_affine(model, _ring_reader(m_ring, s, W), pattern,
                                text, plen, tlen, ks,

@@ -147,6 +147,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     control of the checks, ``None`` in every real call."""
     from repro_torch.kernels.flash_attention import build
 
+    if any(type(t) is not torch.Tensor for t in (q, k, v)):
+        raise TypeError(f"the CUDA kernel takes plain tensors, got "
+                        f"{type(q).__name__}: launch it on each shard's "
+                        f"local tensor")
     _check(q, k, v, block_q, block_k, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got "

@@ -8,8 +8,9 @@ the same device more than once: that is the only way to get more than one
 shard on the CPU, or on a machine with one card.
 
 Functions, never module-level constants, so importing this module queries
-no device.  ``make_production_mesh`` (a TPU pod's 16 x 16) is not here: it
-serves the dry-run, which the port does not have yet.
+no device.  ``make_production_mesh`` is the dry-run's 16 x 16 (or 2 x 16 x
+16) mesh of ``torch.device("meta")`` entries: it plans, it runs nothing
+(``distributed.fake_mesh`` gives it a DTensor ``DeviceMesh``).
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import torch
 from repro_torch.device import resolve_device
 
 __all__ = ["Mesh", "data_shards", "make_host_mesh", "make_mesh",
-           "mesh_devices"]
+           "make_production_mesh", "mesh_devices"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +71,14 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
                              f"(pass devices= to repeat one)")
         devices = [torch.device("cuda", i) for i in range(n)]
     return Mesh(tuple(resolve_device(d) for d in devices), tuple(axes), shape)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """16 x 16 = 256 cards over ("data", "model"); multi-pod 2 x 16 x 16 =
+    512 over ("pod", "data", "model"); every entry the meta device."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh((torch.device("meta"),) * math.prod(shape), axes, shape)
 
 
 def make_host_mesh(model_parallel: Optional[int] = None,

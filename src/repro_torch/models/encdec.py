@@ -18,9 +18,9 @@ Parameters are a nested dict of tensors under the JAX package's names,
 with ``enc_layers`` and ``layers`` lists of per-layer dicts (the JAX package
 stacks them; ``transformer.params_from_reference`` unstacks both).  Blocks
 run under ``cfg.remat_policy`` (``transformer.remat``).  :func:`serve_step`
-writes into the cache in place.  The JAX package's ``cache_logical_axes``
-names the caches' axes for its sharding rules, which the port does not
-have yet: it is left out.
+writes into the cache in place.  :func:`cache_logical_axes` names the
+caches' axes for the sharding rules (``distributed/sharding.py``), and the
+activations take the JAX package's ``constrain`` calls.
 """
 from __future__ import annotations
 
@@ -30,9 +30,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import ann, constrain
 from repro_torch.models import layers as L
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.transformer import cross_entropy, remat
+from repro_torch.models.transformer import cross_entropy, generator, remat
 
 
 def _check(cfg: ModelConfig) -> None:
@@ -68,15 +69,16 @@ def _init_dec_block(cfg: ModelConfig, gen, device):
 
 def init_params(cfg: ModelConfig, gen=0, device=None) -> Dict[str, Any]:
     """Random parameters with the JAX package's init scales, in
-    ``cfg.param_dtype``, on ``device`` (``None``: the card); ``gen`` a
-    ``torch.Generator`` on that device or an int seed for one."""
+    ``cfg.param_dtype``, on ``device`` (``None``: the card; ``"meta"``
+    allocates nothing); ``gen`` a ``torch.Generator`` on that device or an
+    int seed for one.  Leaves carry the JAX package's logical axes."""
     _check(cfg)
     dev = resolve_device(device)
-    if not isinstance(gen, torch.Generator):
-        gen = torch.Generator(device=dev).manual_seed(int(gen))
+    gen = generator(gen, dev)
     V, D = cfg.vocab_padded, cfg.d_model
     return {
-        "embed": {"w": L._init(gen, (V, D), 0.02, cfg.pdtype(), dev)},
+        "embed": {"w": ann(L._init(gen, (V, D), 0.02, cfg.pdtype(), dev),
+                           "vocab", None)},
         "enc_layers": [_init_enc_block(cfg, gen, dev)
                        for _ in range(cfg.enc_layers)],
         "enc_norm": L.init_rmsnorm(cfg, D, dev),
@@ -105,8 +107,10 @@ def encode(params, cfg: ModelConfig, frames):
     B, T, _ = frames.shape
     pos = _positions(B, T, frames.device)
     h = frames.to(c) + _sinusoid(pos, cfg.d_model).to(c)
+    h = constrain(h, "batch", None, None)
     for blk in params["enc_layers"]:
         h = remat(cfg, _enc_block, cfg, blk, h, pos)
+        h = constrain(h, "batch", None, None)
     return L.rmsnorm(params["enc_norm"], h, cfg.rms_eps)
 
 
@@ -148,9 +152,10 @@ def forward(params, cfg: ModelConfig, tokens, frames):
     enc_h = encode(params, cfg, frames)
     B, S = tokens.shape
     pos = _positions(B, S, tokens.device)
-    h = _embed(params, cfg, tokens, pos)
+    h = constrain(_embed(params, cfg, tokens, pos), "batch", None, None)
     for blk in params["layers"]:
         h = remat(cfg, _dec_block, cfg, blk, h, pos, enc_h)
+        h = constrain(h, "batch", None, None)
     h = L.rmsnorm(params["final_norm"], h, cfg.rms_eps)
     return (_logits(params, cfg, h),
             torch.zeros((), dtype=torch.float32, device=h.device))
@@ -177,6 +182,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
             "cv": torch.zeros(shape(cfg.enc_frames), dtype=cd, device=dev)}
 
 
+def cache_logical_axes(cfg: ModelConfig):
+    """The logical axes of :func:`init_cache`'s tensors."""
+    ax = (None, "batch", "kv_seq", None, None)
+    return {"k": ax, "v": ax, "ck": ax, "cv": ax}
+
+
 def prefill(params, cfg: ModelConfig, tokens, frames):
     """Encode, then a teacher-forced decoder pass -> (next-token logits
     [B,Vp] fp32 at position S - 1, the caches: ``k``, ``v`` S rows long,
@@ -185,10 +196,11 @@ def prefill(params, cfg: ModelConfig, tokens, frames):
     enc_h = encode(params, cfg, frames)
     B, S = tokens.shape
     pos = _positions(B, S, tokens.device)
-    h = _embed(params, cfg, tokens, pos)
+    h = constrain(_embed(params, cfg, tokens, pos), "batch", None, None)
     entries = []
     for blk in params["layers"]:
         h, e = _dec_block(cfg, blk, h, pos, enc_h, return_cache=True)
+        h = constrain(h, "batch", None, None)
         entries.append(e)
     h = L.rmsnorm(params["final_norm"], h[:, -1:], cfg.rms_eps)
     cache = {n: torch.stack([e[j] for e in entries])
@@ -205,7 +217,8 @@ def serve_step(params, cfg: ModelConfig, cache, token, cache_len: int):
     B = token.shape[0]
     pos = torch.full((B, 1), cache_len, dtype=torch.int32,
                      device=token.device)
-    h = _embed(params, cfg, token[:, None], pos)
+    h = constrain(_embed(params, cfg, token[:, None], pos), "batch", None,
+                  None)
     for i, blk in enumerate(params["layers"]):
         a = L.rmsnorm(blk["ln1"], h, cfg.rms_eps)
         y, _, _ = L.gqa_decode(blk["attn"], a, cfg, cache["k"][i],

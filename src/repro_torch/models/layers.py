@@ -33,6 +33,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import ann, constrain
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention_ragged
 from repro_torch.models.common import ModelConfig
@@ -40,7 +41,8 @@ from repro_torch.models.common import ModelConfig
 NEG_INF = -1e30
 
 
-def _init(gen: torch.Generator, shape, scale, dtype, device):
+def _init(gen: Optional[torch.Generator], shape, scale, dtype, device):
+    """N(0, scale^2) in ``dtype``; ``gen`` None on the meta device."""
     return torch.randn(shape, generator=gen, dtype=torch.float32,
                        device=device).to(dtype) * scale
 
@@ -50,7 +52,8 @@ def _init(gen: torch.Generator, shape, scale, dtype, device):
 
 
 def init_rmsnorm(cfg: ModelConfig, d: int, device):
-    return {"w": torch.ones((d,), dtype=cfg.pdtype(), device=device)}
+    return {"w": ann(torch.ones((d,), dtype=cfg.pdtype(), device=device),
+                     None)}
 
 
 def rmsnorm(p, x, eps):
@@ -93,7 +96,7 @@ def mrope_cos_sin(pos3, dim, theta, sections, dtype):
                          f"dim // 2 = {half}")
     sec_id = torch.repeat_interleave(
         torch.arange(3, device=pos3.device),
-        torch.tensor(list(sections), device=pos3.device))
+        torch.tensor(list(sections), device=pos3.device), output_size=half)
     ang = pos3.float()[..., sec_id] * _freqs(half, theta, pos3.device)
     return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
 
@@ -117,14 +120,18 @@ def init_gqa(cfg: ModelConfig, gen: torch.Generator, device):
     s = 1.0 / math.sqrt(D)
     pd = cfg.pdtype()
     p = {
-        "wq": _init(gen, (D, H, dh), s, pd, device),
-        "wk": _init(gen, (D, KV, dh), s, pd, device),
-        "wv": _init(gen, (D, KV, dh), s, pd, device),
-        "wo": _init(gen, (H, dh, D), 1.0 / math.sqrt(H * dh), pd, device),
+        "wq": ann(_init(gen, (D, H, dh), s, pd, device), None, "heads",
+                  None),
+        "wk": ann(_init(gen, (D, KV, dh), s, pd, device), None, "heads",
+                  None),
+        "wv": ann(_init(gen, (D, KV, dh), s, pd, device), None, "heads",
+                  None),
+        "wo": ann(_init(gen, (H, dh, D), 1.0 / math.sqrt(H * dh), pd,
+                        device), "heads", None, None),
     }
     if cfg.qk_norm:
-        p["q_norm"] = torch.ones((dh,), dtype=pd, device=device)
-        p["k_norm"] = torch.ones((dh,), dtype=pd, device=device)
+        p["q_norm"] = ann(torch.ones((dh,), dtype=pd, device=device), None)
+        p["k_norm"] = ann(torch.ones((dh,), dtype=pd, device=device), None)
     return p
 
 
@@ -251,6 +258,14 @@ def gqa_forward(p, h, cfg: ModelConfig, pos, *, causal=True, mrope_pos=None,
     return y
 
 
+def _write_row(cache, new, pos: int):
+    """``cache[:, pos] = new[:, 0]`` in place -> ``cache`` (the dry-run's
+    trace swaps in ``launch.traced_ops.write_row``, which returns a new
+    tensor: callers take the result)."""
+    cache[:, pos:pos + 1] = new.to(cache.dtype)
+    return cache
+
+
 def gqa_decode(p, h, cfg: ModelConfig, cache_k, cache_v, cache_len: int, *,
                mrope_pos=None):
     """One-token decode. h [B,1,D]; cache_[kv] [B,Smax,KV,dh]; cache_len an
@@ -261,8 +276,10 @@ def gqa_decode(p, h, cfg: ModelConfig, cache_k, cache_v, cache_len: int, *,
     B = h.shape[0]
     pos = torch.full((B, 1), cache_len, dtype=torch.int32, device=h.device)
     q, k, v = _qkv(p, h, cfg, _rope(cfg, pos, mrope_pos))
-    cache_k[:, cache_len:cache_len + 1] = k.to(cache_k.dtype)
-    cache_v[:, cache_len:cache_len + 1] = v.to(cache_v.dtype)
+    cache_k = _write_row(cache_k, k, cache_len)
+    cache_v = _write_row(cache_v, v, cache_len)
+    cache_k = constrain(cache_k, "batch", "kv_seq", None, None)
+    cache_v = constrain(cache_v, "batch", "kv_seq", None, None)
     Smax = cache_k.shape[1]
     valid = (torch.arange(Smax, device=h.device)
              <= cache_len)[None, None, None, None, :]
@@ -308,14 +325,17 @@ def init_mla(cfg: ModelConfig, gen: torch.Generator, device):
                      cfg.v_head_dim)
     s = 1.0 / math.sqrt(D)
     pd = cfg.pdtype()
-    return {"wq": _init(gen, (D, H, nd + rd), s, pd, device),
-            "w_dkv": _init(gen, (D, r), s, pd, device),
-            "w_kr": _init(gen, (D, rd), s, pd, device),
-            "kv_norm": torch.ones((r,), dtype=pd, device=device),
-            "w_uk": _init(gen, (r, H, nd), 1.0 / math.sqrt(r), pd, device),
-            "w_uv": _init(gen, (r, H, vd), 1.0 / math.sqrt(r), pd, device),
-            "wo": _init(gen, (H, vd, D), 1.0 / math.sqrt(H * vd), pd,
-                        device)}
+    return {"wq": ann(_init(gen, (D, H, nd + rd), s, pd, device), None,
+                      "heads", None),
+            "w_dkv": ann(_init(gen, (D, r), s, pd, device), None, None),
+            "w_kr": ann(_init(gen, (D, rd), s, pd, device), None, None),
+            "kv_norm": ann(torch.ones((r,), dtype=pd, device=device), None),
+            "w_uk": ann(_init(gen, (r, H, nd), 1.0 / math.sqrt(r), pd,
+                              device), None, "heads", None),
+            "w_uv": ann(_init(gen, (r, H, vd), 1.0 / math.sqrt(r), pd,
+                              device), None, "heads", None),
+            "wo": ann(_init(gen, (H, vd, D), 1.0 / math.sqrt(H * vd), pd,
+                            device), "heads", None, None)}
 
 
 def _mla_latent(p, h, cfg: ModelConfig, pos):
@@ -394,8 +414,10 @@ def mla_decode(p, h, cfg: ModelConfig, cache_ckv, cache_kr, cache_len: int):
     scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
     c_kv_new, k_rope_new = _mla_latent(p, h, cfg, pos)
     q_nope, q_rope = _mla_q(p, h, cfg, pos)
-    cache_ckv[:, cache_len:cache_len + 1] = c_kv_new.to(cache_ckv.dtype)
-    cache_kr[:, cache_len:cache_len + 1] = k_rope_new.to(cache_kr.dtype)
+    cache_ckv = _write_row(cache_ckv, c_kv_new, cache_len)
+    cache_kr = _write_row(cache_kr, k_rope_new, cache_len)
+    cache_ckv = constrain(cache_ckv, "batch", "kv_seq", None)
+    cache_kr = constrain(cache_kr, "batch", "kv_seq", None)
     Smax = cache_ckv.shape[1]
     valid = (torch.arange(Smax, device=h.device)
              <= cache_len)[None, None, None, :]
@@ -433,11 +455,15 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator, device,
     s_in, s_out = 1.0 / math.sqrt(D), 1.0 / math.sqrt(Fd)
     pd = cfg.pdtype()
     if cfg.mlp_gated:
-        return {"w1": _init(gen, (D, Fd), s_in, pd, device),
-                "w3": _init(gen, (D, Fd), s_in, pd, device),
-                "w2": _init(gen, (Fd, D), s_out, pd, device)}
-    return {"w_in": _init(gen, (D, Fd), s_in, pd, device),
-            "w_out": _init(gen, (Fd, D), s_out, pd, device)}
+        return {"w1": ann(_init(gen, (D, Fd), s_in, pd, device), None,
+                          "ff"),
+                "w3": ann(_init(gen, (D, Fd), s_in, pd, device), None,
+                          "ff"),
+                "w2": ann(_init(gen, (Fd, D), s_out, pd, device), "ff",
+                          None)}
+    return {"w_in": ann(_init(gen, (D, Fd), s_in, pd, device), None, "ff"),
+            "w_out": ann(_init(gen, (Fd, D), s_out, pd, device), "ff",
+                         None)}
 
 
 def mlp_forward(p, x, cfg: ModelConfig):

@@ -2,13 +2,16 @@
 (the JAX package's ``models/registry.py``).
 
 ``get_model_fns(cfg)`` returns the family's ``init_params``, ``loss_fn``,
-``prefill``, ``serve_step``, ``init_cache`` and ``forward``, with
-``make_train_step`` and ``init_train_state``; ``batch_specs(cfg, shape)``
-returns ``device="meta"`` tensors (the counterpart of ``ShapeDtypeStruct``)
-for the inputs of the loss (``train_*``) or of prefill (``prefill_*``), and
-``synth_batch`` a concrete seeded batch of the same shapes.  Every family
-of the JAX package is here: enc-dec from ``models/encdec.py``, the others
-from ``models/transformer.py``.
+``prefill``, ``serve_step``, ``init_cache``, ``cache_logical_axes`` and
+``forward``, with ``make_train_step`` and ``init_train_state``;
+``batch_specs(cfg, shape)`` returns ``device="meta"`` tensors (the
+counterpart of ``ShapeDtypeStruct``) for the inputs of the loss
+(``train_*``) or of prefill (``prefill_*``), ``decode_specs`` those of
+``serve_step``, ``abstract_train_state`` the state on the meta device, each
+with its logical axes (``batch_logical_axes``, ``decode_logical_axes``),
+and ``synth_batch`` a concrete seeded batch of the same shapes.  Every
+family of the JAX package is here: enc-dec from ``models/encdec.py``, the
+others from ``models/transformer.py``.
 """
 from __future__ import annotations
 
@@ -31,13 +34,14 @@ class ModelFns:
     prefill: Callable
     serve_step: Callable
     init_cache: Callable
+    cache_logical_axes: Callable
     forward: Callable
 
     def make_train_step(self, cfg: ModelConfig, opt_cfg: AdamWConfig,
-                        n_micro: int, grad_transform=None):
+                        n_micro: int, grad_transform=None, param_view=None):
         return TFM.make_train_step(cfg, opt_cfg, n_micro,
                                    grad_transform=grad_transform,
-                                   loss=self.loss_fn)
+                                   loss=self.loss_fn, param_view=param_view)
 
     def init_train_state(self, cfg: ModelConfig, gen=0, device=None):
         return TFM.init_train_state(cfg, gen, device, init=self.init_params)
@@ -48,11 +52,15 @@ def get_model_fns(cfg: ModelConfig) -> ModelFns:
         return ModelFns(init_params=ENCDEC.init_params,
                         loss_fn=ENCDEC.loss_fn, prefill=ENCDEC.prefill,
                         serve_step=ENCDEC.serve_step,
-                        init_cache=ENCDEC.init_cache, forward=ENCDEC.forward)
+                        init_cache=ENCDEC.init_cache,
+                        cache_logical_axes=ENCDEC.cache_logical_axes,
+                        forward=ENCDEC.forward)
     TFM._ported(cfg)
     return ModelFns(init_params=TFM.init_params, loss_fn=TFM.loss_fn,
                     prefill=TFM.prefill, serve_step=TFM.serve_step,
-                    init_cache=TFM.init_cache, forward=TFM.forward)
+                    init_cache=TFM.init_cache,
+                    cache_logical_axes=TFM.cache_logical_axes,
+                    forward=TFM.forward)
 
 
 def batch_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
@@ -75,6 +83,47 @@ def batch_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
                                      dtype=cfg.cdtype())
         specs["mrope_pos"] = meta(B, S, 3)
     return specs
+
+
+def batch_logical_axes(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
+    axes: Dict[str, Any] = {"tokens": ("batch", None)}
+    if shape.kind == "train":
+        axes["targets"] = ("batch", None)
+    if cfg.family == "encdec":
+        axes["frames"] = ("batch", None, None)
+    if cfg.family == "vlm":
+        axes["patch_embeds"] = ("batch", None, None)
+        axes["mrope_pos"] = ("batch", None, None)
+    return axes
+
+
+def decode_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
+    """The inputs of ``serve_step`` as ``device="meta"`` tensors: the cache
+    (``init_cache`` at the shape's batch and length), the int32 token [B],
+    the int32 0-d ``cache_len`` and a VLM's ``mrope_pos`` [B, 1, 3]."""
+    B, S = shape.global_batch, shape.seq_len
+    fns = get_model_fns(cfg)
+    meta = lambda *s: torch.empty(s, dtype=torch.int32, device="meta")
+    out = {"cache": fns.init_cache(cfg, B, S, device="meta"),
+           "token": meta(B), "cache_len": meta()}
+    if cfg.family == "vlm":
+        out["mrope_pos"] = meta(B, 1, 3)
+    return out
+
+
+def decode_logical_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    out = {"cache": get_model_fns(cfg).cache_logical_axes(cfg),
+           "token": ("batch",), "cache_len": ()}
+    if cfg.family == "vlm":
+        out["mrope_pos"] = ("batch", None, None)
+    return out
+
+
+def abstract_train_state(cfg: ModelConfig, seed: int = 0):
+    """(the train state on ``device="meta"``, its logical-axes tree): no
+    allocation.  The state keeps the port's layout (stacked layers as
+    lists); ``sharding.stack_layers`` gives the axes' layout."""
+    return get_model_fns(cfg).init_train_state(cfg, seed, "meta")
 
 
 def synth_batch(cfg: ModelConfig, shape: ShapeSpec, seed: int = 0,

@@ -28,6 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import ann
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import _init
 
@@ -49,29 +50,36 @@ def init_ssm(cfg: ModelConfig, gen: torch.Generator, device):
     a_init = torch.log(torch.linspace(1.0, 16.0, H, dtype=torch.float32,
                                       device=device))
     p = {
-        "w_z": _init(gen, (D, di), s, pd, device),
-        "w_dt": _init(gen, (D, H), s, pd, device),
-        "A_log": a_init.to(pd),
-        "D": torch.ones((H,), dtype=pd, device=device),
-        "dt_bias": torch.full((H,), -4.6, dtype=pd, device=device),
-        "norm_w": torch.ones((di,), dtype=pd, device=device),
-        "w_out": _init(gen, (di, D), 1.0 / math.sqrt(di), pd, device),
+        "w_z": ann(_init(gen, (D, di), s, pd, device), None, "ff"),
+        "w_dt": ann(_init(gen, (D, H), s, pd, device), None, "heads"),
+        "A_log": ann(a_init.to(pd), "heads"),
+        "D": ann(torch.ones((H,), dtype=pd, device=device), "heads"),
+        "dt_bias": ann(torch.full((H,), -4.6, dtype=pd, device=device),
+                       "heads"),
+        "norm_w": ann(torch.ones((di,), dtype=pd, device=device), "ff"),
+        "w_out": ann(_init(gen, (di, D), 1.0 / math.sqrt(di), pd, device),
+                     "ff", None),
     }
     if cfg.ssm_split_proj:
         p.update({
-            "w_x": _init(gen, (D, di), s, pd, device),
-            "w_B": _init(gen, (D, gN), s, pd, device),
-            "w_C": _init(gen, (D, gN), s, pd, device),
-            "conv_w_x": _init(gen, (W, di), 0.5, pd, device),
-            "conv_b_x": torch.zeros((di,), dtype=pd, device=device),
-            "conv_w_bc": _init(gen, (W, 2 * gN), 0.5, pd, device),
-            "conv_b_bc": torch.zeros((2 * gN,), dtype=pd, device=device),
+            "w_x": ann(_init(gen, (D, di), s, pd, device), None, "ff"),
+            "w_B": ann(_init(gen, (D, gN), s, pd, device), None, None),
+            "w_C": ann(_init(gen, (D, gN), s, pd, device), None, None),
+            "conv_w_x": ann(_init(gen, (W, di), 0.5, pd, device), None,
+                            "ff"),
+            "conv_b_x": ann(torch.zeros((di,), dtype=pd, device=device),
+                            "ff"),
+            "conv_w_bc": ann(_init(gen, (W, 2 * gN), 0.5, pd, device), None,
+                             None),
+            "conv_b_bc": ann(torch.zeros((2 * gN,), dtype=pd,
+                                         device=device), None),
         })
     else:
         p.update({
-            "w_xbc": _init(gen, (D, xbc), s, pd, device),
-            "conv_w": _init(gen, (W, xbc), 0.5, pd, device),
-            "conv_b": torch.zeros((xbc,), dtype=pd, device=device),
+            "w_xbc": ann(_init(gen, (D, xbc), s, pd, device), None, "ff"),
+            "conv_w": ann(_init(gen, (W, xbc), 0.5, pd, device), None, "ff"),
+            "conv_b": ann(torch.zeros((xbc,), dtype=pd, device=device),
+                          "ff"),
         })
     return p
 

@@ -39,6 +39,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (ann, annotated, constrain,
+                                              stack_axes)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -48,6 +50,8 @@ from repro_torch.tree import tree_leaves, tree_unflatten
 
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+# the parameter lists the JAX package stacks on a leading layer axis
+STACKS = ("layers", "enc_layers")
 
 
 def _ported(cfg: ModelConfig) -> None:
@@ -91,21 +95,24 @@ def _init_block(cfg: ModelConfig, gen: torch.Generator, device,
 def init_params(cfg: ModelConfig, gen=0, device=None) -> Dict[str, Any]:
     """Random parameters with the JAX package's init scales (embeddings
     N(0, 0.02), projections N(0, 1/fan_in), norms 1), in
-    ``cfg.param_dtype``, on ``device`` (``None``: the card).  ``gen`` is a
-    ``torch.Generator`` on that device or an int seed for one; the numbers
-    differ from ``jax.random``'s for the same seed."""
+    ``cfg.param_dtype``, on ``device`` (``None``: the card; ``"meta"``
+    allocates nothing).  ``gen`` is a ``torch.Generator`` on that device or
+    an int seed for one; the numbers differ from ``jax.random``'s for the
+    same seed.  Every leaf carries the JAX package's logical axes
+    (``sharding.ann``; :func:`init_train_state` returns them)."""
     _ported(cfg)
     dev = resolve_device(device)
-    if not isinstance(gen, torch.Generator):
-        gen = torch.Generator(device=dev).manual_seed(int(gen))
+    gen = generator(gen, dev)
     V, D = cfg.vocab_padded, cfg.d_model
     pd = cfg.pdtype()
     params: Dict[str, Any] = {
-        "embed": {"w": L._init(gen, (V, D), 0.02, pd, dev)},
+        "embed": {"w": ann(L._init(gen, (V, D), 0.02, pd, dev), "vocab",
+                           None)},
         "final_norm": L.init_rmsnorm(cfg, D, dev),
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = {"w": L._init(gen, (D, V), 0.02, pd, dev)}
+        params["unembed"] = {"w": ann(L._init(gen, (D, V), 0.02, pd, dev),
+                                      None, "vocab")}
     first = cfg.first_k_dense if cfg.is_moe else 0
     if first:
         params["head_layers"] = [_init_block(cfg, gen, dev, i)
@@ -119,6 +126,16 @@ def init_params(cfg: ModelConfig, gen=0, device=None) -> Dict[str, Any]:
             "attn": L.init_gqa(cfg, gen, dev),
             "mlp": L.init_mlp(cfg, gen, dev)}
     return params
+
+
+def generator(gen, dev: torch.device):
+    """``gen`` as init draws from it: a ``torch.Generator`` as it is, an int
+    seed as a generator on ``dev``, None on the meta device."""
+    if dev.type == "meta":
+        return None
+    if isinstance(gen, torch.Generator):
+        return gen
+    return torch.Generator(device=dev).manual_seed(int(gen))
 
 
 def n_shared_apps(cfg: ModelConfig) -> int:
@@ -179,9 +196,8 @@ def params_from_reference(tree, device=None) -> Dict[str, Any]:
         return {k: layer(v, i) if isinstance(v, dict) else v[i]
                 for k, v in tree.items()}
 
-    stacks = ("layers", "enc_layers")
-    out = {k: conv(v) for k, v in tree.items() if k not in stacks}
-    for name in stacks:
+    out = {k: conv(v) for k, v in tree.items() if k not in STACKS}
+    for name in STACKS:
         if name in tree:
             stacked = conv(tree[name])
             n = tree_leaves(stacked)[0].shape[0]
@@ -274,6 +290,12 @@ def _embed(params, cfg: ModelConfig, tokens, patch_embeds=None):
     return h
 
 
+def _hc(cfg: ModelConfig, h):
+    """Between-layer activation constraint; the seq axis shards under
+    sequence parallelism (``cfg.seq_shard``)."""
+    return constrain(h, "batch", "seq" if cfg.seq_shard else None, None)
+
+
 def _positions(tokens):
     B, S = tokens.shape
     return torch.arange(S, dtype=torch.int32,
@@ -290,13 +312,14 @@ def forward(params, cfg: ModelConfig, tokens, *, patch_embeds=None,
     ``layers.gqa_forward``."""
     _ported(cfg)
     pos = _positions(tokens)
-    h = _embed(params, cfg, tokens, patch_embeds)
+    h = _hc(cfg, _embed(params, cfg, tokens, patch_embeds))
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for blk in params.get("head_layers", []):
         h, aux = _block_fwd(cfg, blk, h, pos, mrope_pos)
         aux_total = aux_total + aux
     for _, blk in _run_order(cfg, params):
         h, aux = remat(cfg, _block_fwd, cfg, blk, h, pos, mrope_pos)
+        h = _hc(cfg, h)
         aux_total = aux_total + aux
     h = L.rmsnorm(params["final_norm"], h, cfg.rms_eps)
     return _logits(params, cfg, h), aux_total
@@ -332,7 +355,7 @@ def loss_fn(params, cfg: ModelConfig, batch):
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, n_micro: int,
-                    grad_transform=None, loss=None):
+                    grad_transform=None, loss=None, param_view=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``batch`` holds ``tokens`` and ``targets`` [B, S] (numpy or tensors),
@@ -342,12 +365,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, n_micro: int,
     whose fp32 gradients are summed and divided by ``n_micro``.  The state's
     parameters and moments are updated in place; ``metrics`` holds
     ``loss``, ``grad_norm`` and ``lr`` as 0-d tensors on the state's
-    device."""
+    device.  ``param_view``, where given, maps the parameter tree inside
+    the differentiated function (the dry-run's ZeRO all-gather, whose
+    backward reduce-scatters the gradients)."""
     loss = loss or loss_fn
+    view = param_view or (lambda p: p)
 
     def value_and_grad(params, mb):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-        l = loss(tree_unflatten(params, leaves), cfg, mb)
+        l = loss(view(tree_unflatten(params, leaves)), cfg, mb)
         grads = torch.autograd.grad(l, leaves, materialize_grads=True)
         return l.detach(), [g.float() for g in grads]
 
@@ -379,14 +405,18 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, n_micro: int,
 
 
 def init_train_state(cfg: ModelConfig, gen=0, device=None, init=None):
-    """-> (state, None): ``{"params", "opt": {"m", "v"}, "step"}`` on
-    ``device`` (``None``: the card), parameters from ``init`` (default
-    :func:`init_params`), fp32 moments at 0, step an int32 0-d tensor.  The
-    second item stands for the JAX package's logical axes, which come with
-    the sharding rules (not ported yet)."""
+    """-> (state, its logical axes): ``{"params", "opt": {"m", "v"},
+    "step"}`` on ``device`` (``None``: the card; ``"meta"``: no
+    allocation), parameters from ``init`` (default :func:`init_params`),
+    fp32 moments at 0, step an int32 0-d tensor.  The axes tree is the JAX
+    package's: the moments take the parameters' axes, and a list of
+    stacked layers (``layers``, ``enc_layers``) is one dict of axes with a
+    leading None (``sharding.stack_axes``)."""
     dev = resolve_device(device)
-    params = (init or init_params)(cfg, gen, dev)
-    return train_state(params), None
+    params, axes = annotated(init or init_params, cfg, gen, dev)
+    axes = {k: stack_axes(v) if k in STACKS else v for k, v in axes.items()}
+    state_axes = {"params": axes, "opt": {"m": axes, "v": axes}, "step": ()}
+    return train_state(params), state_axes
 
 
 def train_state(params):
@@ -442,6 +472,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
             for n, s in zip(_cache_names(cfg), shapes)}
 
 
+def cache_logical_axes(cfg: ModelConfig):
+    """The logical axes of :func:`init_cache`'s tensors."""
+    if _is_ssm(cfg):
+        axes = {"ssm": (None, "batch", "heads", None, None),
+                "conv": (None, "batch", None, "ff")}
+        if cfg.family == "hybrid":
+            axes["attn_k"] = axes["attn_v"] = (None, "batch", "kv_seq", None,
+                                               None)
+        return axes
+    if cfg.attn_kind == "mla":
+        return {"ckv": (None, "batch", "kv_seq", None),
+                "kr": (None, "batch", "kv_seq", None)}
+    return {"k": (None, "batch", "kv_seq", None, None),
+            "v": (None, "batch", "kv_seq", None, None)}
+
+
 def _block_decode(cfg: ModelConfig, blk, h, c0, c1, cache_len: int,
                   mrope_pos=None):
     """One block, one token; ``c0, c1`` the layer's cache rows (K and V,
@@ -478,7 +524,7 @@ def serve_step(params, cfg: ModelConfig, cache, token, cache_len: int, *,
     hybrid never takes them)."""
     _ported(cfg)
     cache_len = int(cache_len)
-    h = _embed(params, cfg, token[:, None])
+    h = constrain(_embed(params, cfg, token[:, None]), "batch", None, None)
     n0, n1 = _cache_names(cfg)
     head = params.get("head_layers", [])
     for i, blk in enumerate(head):
@@ -508,13 +554,14 @@ def prefill(params, cfg: ModelConfig, tokens, *, patch_embeds=None,
     long, the SSM state and conv tail those after position S - 1."""
     _ported(cfg)
     pos = _positions(tokens)
-    h = _embed(params, cfg, tokens, patch_embeds)
+    h = _hc(cfg, _embed(params, cfg, tokens, patch_embeds))
     entries, shared_kv = [], []
     for blk in params.get("head_layers", []):
         h, _, e = _block_fwd(cfg, blk, h, pos, mrope_pos, return_cache=True)
         entries.append(e)
     for row, blk in _run_order(cfg, params):
         h, _, e = _block_fwd(cfg, blk, h, pos, mrope_pos, return_cache=True)
+        h = _hc(cfg, h)
         (shared_kv if row is None else entries).append(e)
     h = L.rmsnorm(params["final_norm"], h, cfg.rms_eps)
     logits = _logits(params, cfg, h[:, -1:, :])

@@ -486,7 +486,9 @@ def test_registry_training_entries():
     fns = t_registry.get_model_fns(tcfg)
     assert fns.loss_fn is TT.loss_fn
     state, axes = fns.init_train_state(tcfg, 0, "cpu")
-    assert axes is None and set(state) == {"params", "opt", "step"}
+    _, j_axes = j_registry.get_model_fns(jcfg).init_train_state(
+        jcfg, jax.random.key(0))
+    assert axes == j_axes and set(state) == {"params", "opt", "step"}
     assert state["step"].dtype == torch.int32 and int(state["step"]) == 0
     for key, m in key_paths(state["opt"]["m"]):
         assert m.dtype == torch.float32 and float(m.abs().max()) == 0, key
