@@ -97,13 +97,15 @@ Phases (each raises on failure, and the script then exits non-zero):
    inputs against the plain version over {MHA 8/8, GQA 16/8, MQA 16/1,
    qwen3-32b's 64/8, granite-34b's 48/1} x {causal, non-causal} x {fp32,
    bf16} x dh {64, 128} x S {128, 250, 1,024, 2,048} (non-causal only at
-   block multiples) plus non-causal Sq 128 over Sk 1,024, within 3e-5
-   (fp32, no TF32) and 2e-2 (bf16), and in bf16 also within 2 ulps of each
-   output plus a floor; bf16 at dh 64 / 128 must run the wgmma body by
-   default and runs once more on ``mma.sync`` and on the fp32 pipes; a
-   control shows that this check passes a sound attention and fails one
+   block multiples) plus non-causal Sq 128 over Sk 1,024, and bf16 at dh
+   112 (zamba2's) over the same layouts, causal and not, at S 250 (the
+   non-causal keys unpadded) and 2,048, within 3e-5 (fp32, no TF32) and
+   2e-2 (bf16), and in bf16 also within 2 ulps of each output plus a
+   floor; bf16 at dh 64 / 112 / 128 must run the wgmma body by default and
+   runs once more on the fp32 pipes (and at dh 64 / 128 on ``mma.sync``);
+   a control shows that this check passes a sound attention and fails one
    with a key tile dropped, in the materialised attention and in the wgmma
-   body itself; then at the served shape (B 8, S 2,048, H 16, KV 8, dh
+   body itself, at dh 128 and 112; then at the served shape (B 8, S 2,048, H 16, KV 8, dh
    128, bf16, causal) the wgmma, ``mma.sync`` and fp32-pipe bodies, the
    plain version and ``scaled_dot_product_attention`` (the yardstick, timed
    only) are timed in turns, twice;
@@ -188,7 +190,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    on phi at 2 layers, 2 x 1,024 tokens, 3 steps under ``"dots"``: a
    finite loss that holds the aux term, the router and every expert moved
    with a gradient, each flash launch of step 0 held against the plain
-   version; step ms, tokens/s, peak;
+   version; step ms, tokens/s, peak; phi's prefill launch shape alone
+   beside ``scaled_dot_product_attention`` in two turns;
 18. the SSM and hybrid families — (a) mamba2-780m whole at published
    widths, seeded fp32 weights: ``serve.main(["--arch", "mamba2-780m"])``
    and one ``BatchServer`` wave of 8 x 2,048 tokens, 32 new, through
@@ -202,15 +205,17 @@ Phases (each raises on failure, and the script then exits non-zero):
    zamba2-7b whole
    (81 Mamba2 layers, the shared GQA + MLP block after every 6th: 13
    applications), the same: 13 flash launches a prefill at bf16, dh 112,
-   G 1, all on the fp32-pipe body, each held against the plain version to
-   the limits, each timed by CUDA events; that launch
-   shape alone: the body, the plain version and
-   ``scaled_dot_product_attention`` timed, with the bound; (c)
+   G 1, all on the wgmma body, each held against the plain version to the
+   limits, each timed by CUDA events (and the launcher's 26, held the same
+   way); that launch shape alone: the wgmma body, the fp32-pipe body (its
+   body before dh 112 ran on wgmma), the plain version and
+   ``scaled_dot_product_attention`` timed in two turns, with the bound; (c)
    ``launch.train.main`` on mamba2 whole (8 x 1,024 tokens, 6 steps) and
    zamba2 at 12 layers (2 x 1,024 tokens, 3 steps), under ``"dots"``: finite
    losses, mamba2's falling; every leaf of zamba2's SSM layers and shared
-   block moved with a gradient, its step-0 flash launches held against the
-   plain version; step ms, tokens/s, peak;
+   block moved with a gradient, all 12 of its flash launches on wgmma and
+   held against the plain version to both limits; step ms, tokens/s,
+   peak;
 19. the enc-dec and VLM families — (a) whisper-base whole at published
    widths, seeded fp32 weights: a wave of 16 requests of 1,500 seeded frame
    embeddings (30 s of audio through the stubbed frontend) and the 4-token
@@ -232,9 +237,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    positions: 28 flash launches a prefill on wgmma, each held against the
    plain version; prefill + decode against one forward in bf16 and fp32
    within VLM_E2E_TOL (:func:`vlm_e2e`), a decode without M-RoPE positions
-   past them; (c) ``launch.train.main`` on whisper whole (8 x 448 tokens
-   on zero frames, 3 steps) and on qwen2-vl at 4 of 28 layers (2 x 1,024,
-   3 steps), under ``"dots"``: finite losses, 36 and 8 flash launches a
+   past them, its prefill launch shape alone beside
+   ``scaled_dot_product_attention`` in two turns; (c) ``launch.train.main``
+   on whisper whole (8 x 448 tokens on zero frames, 3 steps) and on
+   qwen2-vl at 4 of 28 layers (2 x 1,024, 3 steps), under ``"dots"``: finite losses, 36 and 8 flash launches a
    step on wgmma, step 0's held against the plain version, every leaf of
    the layers moved with a gradient; step ms, tokens/s, peak;
 20. report — a ``kernels`` JSON line, the card's name and power limit, and
@@ -395,11 +401,12 @@ MOE_ROUTER_TOL = 2 ** -2
 # state: 12.5 GB); zamba2's 6.75 B parameters would take 108 GB, so it
 # trains at 12 of its 81 layers (2 shared-block applications, 1.37 B
 # parameters, about 22 GB).  zamba2's shared attention (bf16, dh 112, 32
-# heads on 32) runs the flash kernel's fp32-pipe body: the wgmma body takes
-# dh 64 and 128 only.
+# heads on 32) runs the flash kernel's wgmma body (two 64-column halves,
+# the second zero-filled past column 112); phase 18b times the fp32-pipe
+# body, which ran it before, beside it.
 SSM_ARCH = "mamba2-780m"
 HYBRID_ARCH = "zamba2-7b"
-HYBRID_FLASH_BODY = "fp32_pipes"
+HYBRID_FLASH_BODY = "wgmma"
 SSM_TRAIN_STEPS = 6
 HYBRID_TRAIN_LAYERS = 12
 HYBRID_TRAIN_BATCH = 2
@@ -1690,22 +1697,26 @@ def attention_bound(B, Sq, Sk, H, KV, dh, causal):
 
 def flash_bodies(q):
     """The CUDA bodies that take these inputs, the default first: wgmma,
-    mma.sync and the fp32 pipes for bf16 at dh 64 and 128, else the fp32
-    pipes."""
+    mma.sync and the fp32 pipes for bf16 at dh 64 and 128, wgmma and the
+    fp32 pipes at dh 112, else the fp32 pipes."""
     import torch
     if q.dtype == torch.bfloat16 and q.shape[3] in (64, 128):
         return ("wgmma", "mma_sync", "fp32_pipes")
+    if q.dtype == torch.bfloat16 and q.shape[3] == 112:
+        return ("wgmma", "fp32_pipes")
     return ("fp32_pipes",)
 
 
 def flash_pair(FK, fops, q, k, v, causal):
     """({body: output}, plain output) on the same inputs, padded as the ops
-    wrapper pads them, sliced back to Sq.  The default call must take the
-    first of :func:`flash_bodies`; the others run by name; each counts one
-    launch under its body."""
+    wrappers pad them (non-causal keys unpadded, as
+    ``ops.flash_attention_ragged`` hands them over), sliced back to Sq.
+    The default call must take the first of :func:`flash_bodies`; the
+    others run by name; each counts one launch under its body."""
     import torch
     Sq = q.shape[1]
-    qp, kp, vp, bq, bk = fops.pad_blocks(q, k, v, causal=causal)
+    qp, kp, vp, bq, bk = fops.pad_blocks(q, k, v, causal=causal,
+                                         pad_keys=causal)
     bodies = flash_bodies(q)
     before = dict(FK.PATH_LAUNCHES)
     outs = {bodies[0]: FK.flash_attention_cuda(qp, kp, vp, causal=causal,
@@ -1801,8 +1812,9 @@ def phase_flash_grid(FK, fops, dev):
     48/1 (granite-34b, G 48: 96 live rows of the wgmma body's 128)} x
     {causal, non-causal} x {fp32, bf16} x dh {64, 128}, B 2, S in {128,
     250, 1,024, 2,048} (non-causal only where S is a block multiple), plus
-    non-causal Sq 128 over Sk 1,024 -> max |err| per dtype and the worst
-    share of the limits per body."""
+    non-causal Sq 128 over Sk 1,024; and bf16 at dh 112 over the same
+    layouts x {causal, non-causal} x S {250, 2,048} -> max |err| per dtype
+    and the worst share of the limits per body."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(14)
     worst = {name: 0.0 for name in FLASH_TOL}
@@ -1811,10 +1823,16 @@ def phase_flash_grid(FK, fops, dev):
     for H, KV in ((8, 8), (16, 8), (16, 1), (64, 8), (48, 1)):
         for dname in FLASH_TOL:
             dt = getattr(torch, dname)
-            for dh in (64, 128):
-                cases = [(S, S, True) for S in (128, 250, 1024, 2048)]
-                cases += [(S, S, False) for S in (128, 1024, 2048)]
-                cases.append((128, 1024, False))
+            for dh in (64, 112, 128):
+                if dh == 112:
+                    if dname != "bfloat16":
+                        continue
+                    cases = [(S, S, c) for S in (250, 2048)
+                             for c in (True, False)]
+                else:
+                    cases = [(S, S, True) for S in (128, 250, 1024, 2048)]
+                    cases += [(S, S, False) for S in (128, 1024, 2048)]
+                    cases.append((128, 1024, False))
                 for Sq, Sk, causal in cases:
                     rnd = lambda *shape: (torch.randn(
                         shape, generator=gen, device=dev) * 0.5).to(dt)
@@ -1833,7 +1851,8 @@ def phase_flash_grid(FK, fops, dev):
                         share[body] = max(share[body], sh)
                     n += 1
     log(f"[flash] every body = plain on {n} cases (bf16 at dh 64 / 128: "
-        f"wgmma, mma.sync and the fp32 pipes): max |err| fp32 "
+        f"wgmma, mma.sync and the fp32 pipes; at dh 112: wgmma and the fp32 "
+        f"pipes): max |err| fp32 "
         f"{worst['float32']:.3g} (tol 3e-5), bf16 {worst['bfloat16']:.3g} "
         f"(tol 2e-2, and {FLASH_BF16_ULPS} ulps of |want| + "
         f"{FLASH_BF16_FLOOR} x the row's mean |want| elementwise); worst "
@@ -1844,42 +1863,50 @@ def phase_flash_grid(FK, fops, dev):
 
 def phase_flash_control(FK, dev):
     """Phase 11b: the bf16 check must pass a sound attention and fail one
-    that leaves a key tile out.  At S 2,048 (GQA 16/8, dh 128, B 2, causal
-    and not), against the plain version (512-key tiles): the plain version
-    on 64-key tiles, the materialised fp32 attention (p rounded against
-    each row's final max) and the wgmma body must pass; the materialised
-    attention with keys 1,024-1,087 dropped and the wgmma body with its
-    128-key tile 8 (keys 1,024-1,151) dropped must fail."""
+    that leaves a key tile out.  At S 2,048 (B 2, causal and not; GQA 16/8
+    at dh 128, then zamba2's 32/32 at dh 112), against the plain version
+    (512-key tiles): the plain version on 64-key tiles (at dh 128), the
+    materialised fp32 attention (p rounded against each row's final max)
+    and the wgmma body must pass; the materialised attention with keys
+    1,024-1,087 dropped and the wgmma body with its 128-key tile 8 (keys
+    1,024-1,151) dropped must fail."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(2049)
     rnd = lambda *shape: (torch.randn(shape, generator=gen, device=dev)
                           * 0.5).to(torch.bfloat16)
     S, drop, tile = 2048, (1024, 1088), 8
-    q, k, v = rnd(2, S, 16, 128), rnd(2, S, 8, 128), rnd(2, S, 8, 128)
     out = []
-    for causal in (True, False):
-        want = FK.flash_attention_plain(q, k, v, causal=causal)
-        tiled = flash_check(FK.flash_attention_plain(
-            q, k, v, causal=causal, block_q=64, block_k=64), want)
-        sound = flash_check(attention_fp32(q, k, v, causal), want)
-        fault = flash_check(attention_fp32(q, k, v, causal, drop), want)
-        body = flash_check(FK.flash_attention_cuda(
-            q, k, v, causal=causal, body="wgmma"), want)
-        body_fault = flash_check(FK.flash_attention_cuda(
-            q, k, v, causal=causal, body="wgmma", drop_key_tile=tile), want)
-        if not max(tiled[1], sound[1], body[1]) <= 1:
-            raise AssertionError(f"the bf16 check fails a sound attention "
-                                 f"(causal {causal}): 64-key tiles {tiled}, "
-                                 f"materialised {sound}, wgmma {body}")
-        if not min(fault[1], body_fault[1]) > 1:
-            raise AssertionError(f"the bf16 check passes a dropped key tile "
-                                 f"(causal {causal}): materialised {fault}, "
-                                 f"wgmma {body_fault}")
-        out.append(f"causal {causal}: 64-key tiles {tiled[1]:.3f}, "
-                   f"materialised {sound[1]:.3f}, wgmma {body[1]:.3f}; "
-                   f"dropped tile: materialised {fault[1]:.2f}, wgmma "
-                   f"{body_fault[1]:.2f} of the limit (max |err| "
-                   f"{fault[0]:.3g}, {body_fault[0]:.3g})")
+    for H, KV, dh in ((16, 8, 128), (32, 32, 112)):
+        q, k, v = rnd(2, S, H, dh), rnd(2, S, KV, dh), rnd(2, S, KV, dh)
+        for causal in (True, False):
+            want = FK.flash_attention_plain(q, k, v, causal=causal)
+            tiled = (flash_check(FK.flash_attention_plain(
+                q, k, v, causal=causal, block_q=64, block_k=64), want)
+                if dh == 128 else None)
+            sound = flash_check(attention_fp32(q, k, v, causal), want)
+            fault = flash_check(attention_fp32(q, k, v, causal, drop), want)
+            body = flash_check(FK.flash_attention_cuda(
+                q, k, v, causal=causal, body="wgmma"), want)
+            body_fault = flash_check(FK.flash_attention_cuda(
+                q, k, v, causal=causal, body="wgmma", drop_key_tile=tile),
+                want)
+            where = f"dh {dh}, causal {causal}"
+            if not max(sound[1], body[1], tiled[1] if tiled else 0) <= 1:
+                raise AssertionError(f"the bf16 check fails a sound "
+                                     f"attention ({where}): 64-key tiles "
+                                     f"{tiled}, materialised {sound}, wgmma "
+                                     f"{body}")
+            if not min(fault[1], body_fault[1]) > 1:
+                raise AssertionError(f"the bf16 check passes a dropped key "
+                                     f"tile ({where}): materialised {fault},"
+                                     f" wgmma {body_fault}")
+            out.append(f"{where}: "
+                       + (f"64-key tiles {tiled[1]:.3f}, " if tiled else "")
+                       + f"materialised {sound[1]:.3f}, wgmma {body[1]:.3f};"
+                       f" dropped tile: materialised {fault[1]:.2f}, wgmma "
+                       f"{body_fault[1]:.2f} of the limit (max |err| "
+                       f"{fault[0]:.3g}, {body_fault[0]:.3g})")
+        del q, k, v
     log(f"[flash] bf16 check control at S {S}: " + "; ".join(out))
 
 
@@ -2411,6 +2438,10 @@ def phase_moe_serve(FK, dev, card, arch, n_layers, why):
                                      "router_rel_diff")})
     del params
     free_card()
+    if gqa:
+        out["alone"] = flash_library_alone(
+            FK, dev, (LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads,
+                      cfg.d_head), card, "moe")
     return out
 
 
@@ -2438,17 +2469,17 @@ def layer_profile(fn, cfg, dev, seed):
     return rows[:6], sum(v for _, v in rows)
 
 
-def hold_launches(FK, captured, dev):
+def hold_launches(FK, captured, dev, absolute=False):
     """Each captured flash launch ``(q, k, v, o, kw)`` (host copies)
     against the plain version on its own inputs, to the elementwise bf16
-    limit alone -> (max |err|, worst share, where, the last launch's inputs
-    and plain output on the card)."""
+    limit (and to FLASH_TOL where ``absolute``) -> (max |err|, worst share,
+    where, the last launch's inputs and plain output on the card)."""
     err = share = 0.0
     where = ""
     for i, (q, k, v, o, kw) in enumerate(captured):
         q, k, v, o = (t.to(dev) for t in (q, k, v, o))
         want_o = FK.flash_attention_plain(q, k, v, **kw)
-        e, sh = flash_check(o, want_o, absolute=False)
+        e, sh = flash_check(o, want_o, absolute=absolute)
         if not sh <= 1:
             raise AssertionError(f"flash launch {i} != plain: max "
                                  f"|err| {e}, {sh:.3g} of the limit; "
@@ -2639,8 +2670,8 @@ def check_ssm_e2e(name, chks, tol, card="", fault=False):
 
 def phase_hybrid_flash(FK, fops, dev, shape, card):
     """Phase 18b's flash launch shape alone (bf16, causal, random inputs
-    of scale 0.5): the default body (the fp32 pipes at dh 112) against the
-    plain version, then it, the plain version and
+    of scale 0.5): the default body (wgmma at dh 112) and the fp32 pipes by
+    name against the plain version, then both, the plain version and
     ``scaled_dot_product_attention`` (timed only) in two turns, beside the
     bound."""
     import torch
@@ -2651,16 +2682,21 @@ def phase_hybrid_flash(FK, fops, dev, shape, card):
                       * 0.5).to(torch.bfloat16)
     q, k, v = rnd(B, S, H, dh), rnd(B, S, KV, dh), rnd(B, S, KV, dh)
     outs, want = flash_pair(FK, fops, q, k, v, True)
-    (body, got), = outs.items()
-    err, share = flash_check(got, want)
-    if not share <= 1:
-        raise AssertionError(f"flash at {shape} != plain: {err}, {share}")
+    body = next(iter(outs))
+    checks = {b: flash_check(got, want) for b, got in outs.items()}
+    if body != HYBRID_FLASH_BODY or not max(
+            sh for _, sh in checks.values()) <= 1:
+        raise AssertionError(f"flash at {shape} != plain or not on "
+                             f"{HYBRID_FLASH_BODY}: {checks}")
+    err, share = checks[body]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    runs = {body: (lambda: FK.flash_attention_cuda(q, k, v, causal=True), 5),
+    runs = {body: (lambda: FK.flash_attention_cuda(q, k, v, causal=True), 50),
+            "fp32_pipes": (lambda: FK.flash_attention_cuda(
+                q, k, v, causal=True, body="fp32_pipes"), 5),
             "plain": (lambda: FK.flash_attention_plain(q, k, v, causal=True),
                       2),
             "library": (lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), 20)}
+                qt, kt, vt, is_causal=True), 50)}
     turns = {name: [] for name in runs}
     for order in (list(runs), list(runs)[::-1]):
         for name in order:
@@ -2669,16 +2705,20 @@ def phase_hybrid_flash(FK, fops, dev, shape, card):
     bound_ms, bound_by = attention_bound(B, S, S, H, KV, dh, True)
     log(f"[ssm] flash at zamba2's shape B {B} S {S} H {H} KV {KV} dh {dh} "
         f"bf16 causal, default body {body}: = plain, max |err| {err:.3g}, "
-        f"{share:.3f} of the limits; bound {bound_ms:.4f} ms ({bound_by}); "
-        f"ms (two turns): " + "; ".join(
+        f"{share:.3f} of the limits (fp32 pipes {checks['fp32_pipes'][0]:.3g}"
+        f", {checks['fp32_pipes'][1]:.3f}); bound {bound_ms:.4f} ms "
+        f"({bound_by}); ms (two turns): " + "; ".join(
             f"{n} {ms[n]:.4f} ({', '.join(f'{t:.4f}' for t in turns[n])})"
             for n in runs)
         + f"; {body} at {100 * bound_ms / ms[body]:.2f}% of the bound, "
+        f"{ms['fp32_pipes'] / ms[body]:.1f}x faster than the fp32 pipes, "
         f"{ms[body] / ms['library']:.2f}x the library call's time; card: "
         f"{card}")
-    return dict(body=body, ms=ms[body], plain_ms=ms["plain"],
-                library_ms=ms["library"], bound_ms=bound_ms,
-                bound_by=bound_by, max_abs_err=err, share=share)
+    return dict(body=body, ms=ms[body], fp32_pipes_ms=ms["fp32_pipes"],
+                plain_ms=ms["plain"], library_ms=ms["library"],
+                bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=max(e for e, _ in checks.values()),
+                share=max(sh for _, sh in checks.values()))
 
 
 def phase_ssm_serve(FK, fops, dev, card, arch):
@@ -2688,12 +2728,13 @@ def phase_ssm_serve(FK, fops, dev, card, arch):
     LM_PROMPT tokens, LM_NEW new (after a cold wave of the same prompts, 2
     new tokens, timed apart): prefill and decode tokens/s, the peak.  A
     hybrid's shared block launches the flash kernel once per application
-    in each prefill, all on HYBRID_FLASH_BODY, each launch held against the
-    plain version; an SSM model launches none.  Then prefill + decode
-    logits of LM_E2E_ROWS requests against one forward (:func:`ssm_e2e`),
-    in bf16 and again in fp32, within SSM_E2E_TOL, and with the planted
-    fault past it (:func:`check_ssm_e2e`); one Mamba2 layer profiled at the
-    prefill shape.  A hybrid's flash launch shape is then timed alone
+    in each prefill, all on HYBRID_FLASH_BODY, each launch (the launcher's
+    and the wave's) held against the plain version to both limits; an SSM
+    model launches none.  Then prefill + decode logits of LM_E2E_ROWS
+    requests against one forward (:func:`ssm_e2e`), in bf16 and again in
+    fp32, within SSM_E2E_TOL, and with the planted fault past it
+    (:func:`check_ssm_e2e`); one Mamba2 layer profiled at the prefill
+    shape.  A hybrid's flash launch shape is then timed alone
     (:func:`phase_hybrid_flash`)."""
     import numpy as np
     import torch
@@ -2708,16 +2749,25 @@ def phase_ssm_serve(FK, fops, dev, card, arch):
     free_card()
     FK.reset_launches()
     t0 = time.perf_counter()
-    rc = serve.main(["--arch", arch])
+    captured, restore = capture_flash(FK)
+    try:
+        rc = serve.main(["--arch", arch])
+    finally:
+        restore()
     wall = time.perf_counter() - t0
     main_launches = FK.LAUNCHES["flash_attention"]
     if (rc != 0 or main_launches != 2 * apps
+            or len(captured) != main_launches
             or FK.PATH_LAUNCHES[HYBRID_FLASH_BODY] != main_launches):
         raise AssertionError(f"serve.main {arch}: rc {rc}, flash bodies "
                              f"{FK.PATH_LAUNCHES}, not {2 * apps} on "
                              f"{HYBRID_FLASH_BODY}")
+    main_err, main_share, _ = check_captured(FK, captured)
+    del captured
     log(f"[ssm] serve.main --arch {arch} (2 waves, weights made on the card "
-        f"included) in {wall:.1f}s; flash launches {main_launches}")
+        f"included) in {wall:.1f}s; flash launches {main_launches}"
+        + (f" on {HYBRID_FLASH_BODY}, = plain: max |err| {main_err:.3g}, "
+           f"{main_share:.3f} of the limits" if main_launches else ""))
 
     params, init_s, gib = seeded_params(cfg, dev, 23)
     rng = np.random.default_rng(24)
@@ -2753,6 +2803,7 @@ def phase_ssm_serve(FK, fops, dev, card, arch):
         f"{total:.3f} ms of kernels; the largest: "
         + "; ".join(f"{k} {v:.3f} ms" for k, v in top))
     out = {"params": cfg.param_count(), "main_launches": main_launches,
+           "main_max_abs_err": main_err, "main_share": main_share,
            "layer_ms": total,
            **{f"e2e{'_fault' if b else ''}": {
                dt: {k: c[dt][k] for k in ("max", "mean", "logit_std")}
@@ -2778,9 +2829,9 @@ def phase_ssm_train(FK, dev, card):
     ``"dots"`` remat.  Losses finite, mamba2's falling; mamba2 launches no
     flash kernel; zamba2's shared block launches it on HYBRID_FLASH_BODY
     once per application and forward (twice under ``"dots"``), each launch
-    of step 0 held against the plain version; every leaf of zamba2's SSM
-    layers and of its shared block moved from its seeded start with a
-    nonzero first moment.  Step ms (median after the first), tokens/s,
+    of every step held against the plain version to both limits; every
+    leaf of zamba2's SSM layers and of its shared block moved from its
+    seeded start with a nonzero first moment.  Step ms (median after the first), tokens/s,
     peak memory."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as TFM
@@ -2803,11 +2854,11 @@ def phase_ssm_train(FK, dev, card):
     cfg = get_config(HYBRID_ARCH).replace(n_layers=HYBRID_TRAIN_LAYERS)
     per_step = TFM.n_shared_apps(cfg) * (
         1 if cfg.remat_policy == "everything" else 2)
+    want = per_step * HYBRID_TRAIN_STEPS
     z = train_main_run(FK, HYBRID_ARCH, HYBRID_TRAIN_BATCH,
                        HYBRID_TRAIN_STEPS, HYBRID_TRAIN_LAYERS,
-                       capture=per_step)
+                       capture=want, keep_on_card=True)
     state, captured = z.pop("state"), z.pop("captured")
-    want = per_step * HYBRID_TRAIN_STEPS
     if (FK.LAUNCHES["flash_attention"] != want
             or FK.PATH_LAUNCHES[HYBRID_FLASH_BODY] != want):
         raise AssertionError(f"{HYBRID_TRAIN_STEPS} steps launched the "
@@ -2817,7 +2868,7 @@ def phase_ssm_train(FK, dev, card):
     # gradient
     moved = moved_with_gradient(state, TFM.init_params(cfg, 0, dev),
                                 ("['layers']", "['shared_attn']"))
-    err, share, where, _ = hold_launches(FK, captured, dev)
+    err, share, where, _ = hold_launches(FK, captured, dev, absolute=True)
     shape = tuple(captured[0][0].shape)
     del captured, state
     free_card()
@@ -2832,9 +2883,10 @@ def phase_ssm_train(FK, dev, card):
         f"GiB; flash launches {want} on {HYBRID_FLASH_BODY}; {moved} leaves "
         f"of the layers and the shared block moved with a gradient; card: "
         f"{card}")
-    log(f"[ssm] train: the {per_step} flash launches of step 0 (q {shape}, "
-        f"bf16, causal) = plain: max |err| {err:.3g}, worst share "
-        f"{share:.3f} of the elementwise limit, {where}")
+    log(f"[ssm] train: the {want} flash launches of {HYBRID_TRAIN_STEPS} "
+        f"steps (q {shape}, bf16, causal, {HYBRID_FLASH_BODY}) = plain: max "
+        f"|err| {err:.3g} (tol 2e-2), worst share {share:.3f} of both "
+        f"limits, {where}")
     out["zamba2"] = z
     return out
 
@@ -3064,6 +3116,29 @@ def flash_alone(FK, q, k, v, kw, Sq):
                 bound_by=bound_by, turns=turns)
 
 
+def flash_library_alone(FK, dev, shape, card, tag):
+    """A path's flash launch shape ``(B, S, H, KV, dh)`` alone on random
+    inputs of scale 0.5 (bf16, causal; its launches on the path are held
+    against the plain version there): :func:`flash_alone` -> its dict."""
+    import torch
+    B, S, H, KV, dh = shape
+    gen = torch.Generator(device=dev).manual_seed(S + H + KV)
+    rnd = lambda *s: (torch.randn(s, generator=gen, device=dev)
+                      * 0.5).to(torch.bfloat16)
+    r = flash_alone(FK, rnd(B, S, H, dh), rnd(B, S, KV, dh),
+                    rnd(B, S, KV, dh), dict(causal=True), S)
+    log(f"[{tag}] flash launch shape alone B {B} S {S} H {H} KV {KV} dh "
+        f"{dh} bf16 causal, ms (two turns): " + "; ".join(
+            f"{n} {r[k]:.4f} ({', '.join(f'{t:.4f}' for t in r['turns'][n])})"
+            for n, k in (("kernel", "ms"), ("plain", "plain_ms"),
+                         ("library", "library_ms")))
+        + f"; bound {r['bound_ms']:.4f} ms ({r['bound_by']}), the kernel at "
+        f"{100 * r['bound_ms'] / r['ms']:.2f}% of it, "
+        f"{r['ms'] / r['library_ms']:.2f}x the library call's time; card: "
+        f"{card}")
+    return r
+
+
 def log_direct(tag, name, r, card):
     lo, hi = min(r["launch_ms"]), max(r["launch_ms"])
     s = r["served"]
@@ -3255,6 +3330,8 @@ def phase_vlm_serve(FK, dev, card):
                           for dt, c in bad.items()})
     del params, r
     free_card()
+    out["alone"] = flash_library_alone(FK, dev, (B, S, H, KV, dh), card,
+                                       "vlm")
     return out
 
 
@@ -3447,12 +3524,14 @@ def run_train_main(argv):
 
 
 def train_main_run(FK, arch, batch, steps, layers=None, capture=0,
-                   seq=TRAIN_SEQ):
+                   seq=TRAIN_SEQ, keep_on_card=False):
     """``launch.train.main`` on ``arch`` (cut to ``layers`` layers through
     the launcher's ``get_config`` when given), B ``batch`` x S ``seq``,
     ``steps`` steps, with the launch counts set to 0 just before it; the
     first ``capture`` flash launches are copied to the host as ``(q, k, v,
-    o, kw)``.  Raises unless it exits 0 with a finite loss logged at every
+    o, kw)`` (or cloned on the card with ``keep_on_card``: a copy to the
+    host inside a timed step would lengthen it; the peak then holds the
+    clones).  Raises unless it exits 0 with a finite loss logged at every
     step.  -> dict: losses, step_ms (median after the first step),
     tokens_per_s, wall_s, peak_gib, the final train state, the captured
     launches."""
@@ -3466,7 +3545,8 @@ def train_main_run(FK, arch, batch, steps, layers=None, capture=0,
     def capturing(q, k, v, **kw):
         o = launch(q, k, v, **kw)
         if len(captured) < capture:
-            captured.append((*(t.cpu() for t in (q, k, v, o)), kw))
+            captured.append((*(t.detach().clone() if keep_on_card
+                               else t.cpu() for t in (q, k, v, o)), kw))
         return o
 
     def keeping(*a, **kw):
@@ -3647,7 +3727,9 @@ def phase_train_device(FK, fops, dev, card):
     forward launch, the plain forward and the FlashAttention backward (the
     _sdpa recompute and its gradient) each timed alone by CUDA events,
     beside one PyTorch call for forward + backward
-    (``scaled_dot_product_attention``, timed only); two train steps under
+    (``scaled_dot_product_attention``, timed only), and the flash forward
+    beside that call's forward in two turns (:func:`flash_library_alone`);
+    two train steps under
     ``torch.profiler``: the kernels' device time against the steps' wall
     clock (the device's busy share), the device time by kind of kernel, the
     host's Python dispatch calls, and a step's device time split into the
@@ -3695,6 +3777,10 @@ def phase_train_device(FK, fops, dev, card):
     alone["backward_ms"] = cuda_ms(backward, 10)
     alone["library_fwd_bwd_ms"] = cuda_ms(library, 10)
     del q, k, v, do, leaf
+    fwd = flash_library_alone(FK, dev, (B, S, H, KV, dh), card, "train")
+    alone.update(kernel_forward_ms=fwd["ms"],
+                 library_forward_ms=fwd["library_ms"],
+                 forward_bound_ms=fwd["bound_ms"])
 
     spec = TokenStreamSpec(vocab_size=cfg.vocab_size, seq_len=S,
                            global_batch=B, seed=0)
@@ -4441,10 +4527,10 @@ def main() -> int:
                 if int(sp):
                     raise AssertionError(f"the wgmma flash body spills: "
                                          f"{fentries[-1]}")
-    if len(fentries) != 10:
+    if len(fentries) != 11:
         raise AssertionError(f"ptxas reported {len(fentries)} flash kernels, "
-                             f"not 10 (fp32 pipes: 2 types x 3 head dims; "
-                             f"mma.sync and wgmma: 2 head dims each)")
+                             f"not 11 (fp32 pipes: 2 types x 3 head dims; "
+                             f"mma.sync: 2 head dims; wgmma: 3)")
     log("[build] ptxas (flash): " + "; ".join(fentries))
     # ptxas says where it ignores setmaxnreg or serialises wgmma
     warned = sorted({w.strip() for w in re.findall(
@@ -4749,6 +4835,7 @@ def main() -> int:
                            served["max_abs_err"], trained["max_abs_err"],
                            moe_served["naive"]["max_abs_err"],
                            moe_trained["max_abs_err"],
+                           hybrid_served["main_max_abs_err"],
                            hybrid_served["max_abs_err"],
                            hybrid_served["flash"]["max_abs_err"],
                            hybrid_trained["max_abs_err"],
@@ -4766,6 +4853,7 @@ def main() -> int:
                                     trained["share"],
                                     moe_served["naive"]["share"],
                                     moe_trained["share"],
+                                    hybrid_served["main_share"],
                                     hybrid_served["share"],
                                     hybrid_served["flash"]["share"],
                                     hybrid_trained["share"],
@@ -4799,21 +4887,28 @@ def main() -> int:
         "moe": {"prefill_launches": moe_served["naive"]["launches"],
                 "prefill_launch_ms": moe_served["naive"]["flash_launch_ms"],
                 "prefill_bound_ms": moe_served["naive"]["flash_bound_ms"],
+                # the prefill's launch shape alone: the kernel and
+                # scaled_dot_product_attention (timed only) in two turns
+                **{f"alone_{k}": moe_served["alone"][k] for k in (
+                    "ms", "library_ms", "bound_ms")},
                 "training_launches": moe_trained["launches"],
                 "training_share": moe_trained["share"]},
-        # zamba2's shared attention (bf16, dh 112, G 1: the fp32-pipe
-        # body): its launches (the launcher's prefills, the served prefill,
-        # 3 training steps), ms a launch in the served prefill by CUDA
-        # events, and at that shape alone the body, the plain version and
-        # scaled_dot_product_attention (timed only) beside the bound
+        # zamba2's shared attention (bf16, dh 112, G 1: the wgmma body):
+        # its launches (the launcher's prefills, the served prefill, 3
+        # training steps), ms a launch in the served prefill by CUDA
+        # events, and at that shape alone the body, the fp32-pipe body
+        # (zamba2's before dh 112 ran on wgmma), the plain version and
+        # scaled_dot_product_attention (timed only) beside the bound; the
+        # worst share of both limits over each path's launches
         "hybrid": {"body": hybrid_served["flash"]["body"],
                    "launches": (hybrid_served["main_launches"]
                                 + hybrid_served["launches"]
                                 + hybrid_trained["launches"]),
                    "prefill_launch_ms": hybrid_served["flash_launch_ms"],
                    **{k: hybrid_served["flash"][k] for k in (
-                       "ms", "plain_ms", "bound_ms", "bound_by",
-                       "library_ms")},
+                       "ms", "fp32_pipes_ms", "plain_ms", "bound_ms",
+                       "bound_by", "library_ms")},
+                   "launcher_share": hybrid_served["main_share"],
                    "prefill_share": hybrid_served["share"],
                    "training_share": hybrid_trained["share"]},
         # whisper-base (bf16, dh 64, G 1, wgmma): its served prefill's
@@ -4842,6 +4937,8 @@ def main() -> int:
         "vlm": {"prefill_launches": vlm_served["launches"],
                 "prefill_launch_ms": vlm_served["launch_ms"],
                 "prefill_bound_ms": vlm_served["bound_ms"],
+                **{f"alone_{k}": vlm_served["alone"][k] for k in (
+                    "ms", "library_ms", "bound_ms")},
                 "prefill_share": vlm_served["share"],
                 "training_launches": ev_trained["vlm"]["launches"],
                 "training_share": ev_trained["vlm"]["share"]}})

@@ -19,11 +19,12 @@
 //
 // Design.  Three bodies compute it; the caller names one (body code 0, 1
 // or 2, chosen in kernel.py::select_body).  The model path, bf16 at head
-// dims 64 and 128 on 16-byte aligned rows, runs flash_wgmma_kernel
+// dims 64, 112 and 128 on 16-byte aligned rows, runs flash_wgmma_kernel
 // (flash_wgmma.cu: TMA-fed, warp-specialised wgmma, 128-row tiles).
-// flash_mma_kernel (mma.sync m16n8k16, below) takes the same inputs and
-// stays as the yardstick the new body is timed against; fp32, other head
-// dims and unaligned rows run flash_kernel on the fp32 pipes.  The last
+// flash_mma_kernel (mma.sync m16n8k16, below) takes the same inputs at dh
+// 64 and 128 and stays as the yardstick the new body is timed against;
+// fp32, other head dims and unaligned rows run flash_kernel on the fp32
+// pipes.  The last
 // two: one CTA of 128 threads per (q tile, batch x KV head); the tile
 // holds BQ positions of all G query heads of that KV head (R = G * BQ <= 64
 // rows, 32 for dh > 128 on the fp32 pipes), as the TPU kernel puts the G
@@ -521,13 +522,21 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
   return cudaGetLastError();
 }
 
-// The tensor-core bodies take bf16 at dh 64 or 128 on 16-byte aligned
-// bases (TMA needs them; rows of 64 or 128 bf16 keep every stride aligned).
+// body codes of flash_attention_launch
+constexpr int BODY_FP32_PIPES = 0;
+constexpr int BODY_MMA_SYNC = 1;
+constexpr int BODY_WGMMA = 2;
+
+// The tensor-core bodies take bf16 on 16-byte aligned bases (TMA needs
+// them; rows of 64, 112 or 128 bf16 keep every stride aligned): mma.sync at
+// dh 64 or 128, wgmma also at 112.
 bool tensor_core_inputs(const void* q, const void* k, const void* v,
-                        const void* o, int dh, int dtype) {
+                        const void* o, int dh, int dtype, int body) {
   const uintptr_t bits = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
                          (uintptr_t)o;
-  return dtype == 1 && (dh == 64 || dh == 128) && bits % 16 == 0;
+  const bool width = dh == 64 || dh == 128 ||
+                     (body == BODY_WGMMA && dh == 112);
+  return dtype == 1 && width && bits % 16 == 0;
 }
 
 int check_args(int B, int Sq, int Sk, int H, int KV, int dh) {
@@ -548,11 +557,6 @@ int launch_fma(const void* q, const void* k, const void* v, void* o, int B,
   return cudaErrorInvalidValue;
 }
 
-// body codes of flash_attention_launch
-constexpr int BODY_FP32_PIPES = 0;
-constexpr int BODY_MMA_SYNC = 1;
-constexpr int BODY_WGMMA = 2;
-
 }  // namespace
 
 // flash_wgmma.cu
@@ -566,10 +570,10 @@ extern "C" {
 
 // Launch one attention on `stream` (no synchronisation) with the body
 // named by `body`: 0 the fp32 pipes (float or bf16, any dh up to 256),
-// 1 mma.sync, 2 wgmma (both bf16 at dh 64 or 128 on 16-byte aligned
-// bases); dtype 0 = float, 1 = bf16.  drop_tile >= 0 (wgmma only) leaves
-// that 128-key tile out: a planted fault for the checks' control, -1 in
-// every real call.  Returns cudaErrorInvalidValue for a body that cannot
+// 1 mma.sync (bf16 at dh 64 or 128 on 16-byte aligned bases), 2 wgmma
+// (the same, and dh 112); dtype 0 = float, 1 = bf16.  drop_tile >= 0
+// (wgmma only) leaves that 128-key tile out: a planted fault for the
+// checks' control, -1 in every real call.  Returns cudaErrorInvalidValue for a body that cannot
 // take the inputs, else cudaGetLastError() after the launch (0 =
 // launched); faults during the run surface at the next sync.
 int flash_attention_launch(const void* q, const void* k, const void* v,
@@ -581,7 +585,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   if (body < BODY_FP32_PIPES || body > BODY_WGMMA ||
       (drop_tile >= 0 && body != BODY_WGMMA) ||
       (body != BODY_FP32_PIPES &&
-       !tensor_core_inputs(q, k, v, o, dh, dtype)))
+       !tensor_core_inputs(q, k, v, o, dh, dtype, body)))
     return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;

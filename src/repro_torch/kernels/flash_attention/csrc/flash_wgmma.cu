@@ -1,7 +1,7 @@
 // Forward GQA flash attention for Hopper: the warp-specialised wgmma body.
 //
-// Replaces, for bf16 at head dims 64 and 128 (the model path), the Pallas
-// TPU kernel repro/kernels/flash_attention/kernel.py::flash_attention_gqa
+// Replaces, for bf16 at head dims 64, 112 and 128 (the model path), the
+// Pallas TPU kernel repro/kernels/flash_attention/kernel.py::flash_attention_gqa
 // (body _kernel).  It computes what flash_attention.cu's bodies compute,
 // under the same contract: query head h reads KV head h / G; fp32 scores
 // and sums; masked scores at the finite NEG_INF, never -inf; the causal
@@ -12,7 +12,9 @@
 // What bounds it.  The served shape (B 8, S 2,048, H 16, KV 8, dh 128,
 // causal) needs 137.5 GFLOP and 201 MB: 0.139 ms at the tensor cores' 989
 // TFLOP/s, so the bound is operations, and wgmma is the only instruction
-// that reaches that rate.  The design keeps the tensor cores fed:
+// that reaches that rate; zamba2-7b's shared attention (B 8, S 2,048, H 32,
+// KV 32, dh 112) needs 240.6 GFLOP, 0.243 ms.  The design keeps the tensor
+// cores fed:
 //
 // - CTA: three warpgroups.  Warpgroup 2 is the producer: one thread issues
 //   TMA loads and `setmaxnreg` lowers its registers to 24.  Warpgroups 0
@@ -21,19 +23,23 @@
 //   the G query heads of one KV head (G * BQ rows live).
 // - TMA: 4-D tensor maps over q, o [B, Sq, H, dh] and k, v [B, Sk, KV, dh]
 //   with 128-byte swizzle, so a box is 64 head-dim elements wide and dh
-//   128 loads as two boxes ("halves").  The Q box (64, G, BQ, 1) lands rows
+//   128 loads as two boxes ("halves").  dh 112 loads as two halves too:
+//   the second box's columns 112-127 lie past the map's dims[0], so TMA
+//   fills them with zeros (and still counts them in the barrier's bytes),
+//   and the epilogue's store clips them.  The Q box (64, G, BQ, 1) lands rows
 //   in (position, head) order, the K-major layout wgmma reads; per-batch
 //   coordinates zero-fill past Sq / Sk.  K and V tiles of 128 keys go
 //   through two rings of STAGES stages (a K tile loads while the V tile
 //   before it is still read), each stage with a `full` mbarrier (TMA
 //   bytes) and an `empty` one (the 256 consumer threads).
-// - S = Q K^T: wgmma m64n128k16, both operands K-major in shared memory.
+// - S = Q K^T: wgmma m64n128k16, both operands K-major in shared memory,
+//   dh / 16 k-steps (7 at dh 112: 4 in half 0, 3 in half 1).
 // - Softmax on the accumulator fragments: a row's 128 scores sit on the 4
 //   threads of a quad; exp2 with scale * log2(e) folded into one FMA; l
 //   summed per thread from unrounded p and reduced over the quad at the
 //   end; p rounded to bf16 straight into the A fragments of p @ v.
-// - O += P V: wgmma m64n{DH}k16, A from registers, V from shared memory as
-//   an MN-major B operand (the transpose bit).
+// - O += P V: wgmma m64n{DH}k16 (n112 at dh 112), A from registers, V
+//   from shared memory as an MN-major B operand (the transpose bit).
 // - Overlap: a consumer issues Q K^T of tile t and P V of tile t - 1
 //   together and runs the softmax of t under that P V; the two consumers
 //   take turns to issue (ping-pong on named barriers), so one's softmax
@@ -44,7 +50,7 @@
 //   so the finite NEG_INF never gets weight; the heaviest q tiles first.
 // - Epilogue: acc / max(l, 1e-30) (one reciprocal a row) in bf16 into the
 //   Q tile's shared memory (swizzled as the TMA store reads it), then one
-//   TMA store, which clips rows past Sq.
+//   TMA store, which clips rows past Sq and columns past dh.
 //
 // Not yet: a persistent grid (one CTA per SM walking the tiles, so one
 // tile's epilogue overlaps the next one's loads).
@@ -66,8 +72,12 @@ constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DH> struct WCfg {
-  static constexpr int HALVES = DH / BOX;
-  static constexpr int STAGES = DH == 128 ? 2 : 4;
+  // 64-column halves in shared memory: dh 112 takes two, as 128 does
+  static constexpr int HALVES = (DH + BOX - 1) / BOX;
+  // the products' width: PW / 16 k-steps of Q K^T, n = PW of P V, PW / 2
+  // accumulators a thread
+  static constexpr int PW = DH;
+  static constexpr int STAGES = HALVES == 2 ? 2 : 4;
   static constexpr int Q_HALF = ROWS * ROW_BYTES;        // 16 KB
   static constexpr int KV_HALF = BK * ROW_BYTES;         // 16 KB
   static constexpr int Q_BYTES = HALVES * Q_HALF;
@@ -174,15 +184,17 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define WG_D32 WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
-#define WG_D64 WG_D32, WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
+#define WG_D56 WG_D32, WG_D8(32), WG_D8(40), WG_D8(48)
+#define WG_D64 WG_D56, WG_D8(56)
 #define WG_R32                                                          \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
   "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
   "%28, %29, %30, %31"
-#define WG_R64                                                          \
+#define WG_R56                                                          \
   WG_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "    \
          "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "  \
-         "%55, %56, %57, %58, %59, %60, %61, %62, %63"
+         "%55"
+#define WG_R64 WG_R56 ", %56, %57, %58, %59, %60, %61, %62, %63"
 
 // d[64] (+)= A (64 x 16, K-major, shared) * B (16 x 128, K-major, shared)
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
@@ -203,6 +215,18 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_R64
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : WG_D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[56] += A (64 x 16, registers) * B (16 x 112, MN-major, shared): the
+// second 64-column half's first 48 columns
+__device__ __forceinline__ void wgmma_rs(float (&d)[56], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 " WG_R56
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : WG_D56
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -252,7 +276,7 @@ __device__ __forceinline__ uint32_t sw128_offset(int row, int col) {
 // fragments only after the P V before it has completed.
 template <int DH> struct Consumer {
   using C = WCfg<DH>;
-  float acc[DH / 2];             // O: element 4 n + e is row r0 + 8 (e / 2),
+  float acc[C::PW / 2];          // O: element 4 n + e is row r0 + 8 (e / 2),
                                  // column 8 n + 2 t4 + e % 2
   uint32_t pf[BK / 16][4];       // P of the tile whose P V is next, bf16
   // running max in log2 units (scores x scale x log2 e), this thread's part
@@ -277,7 +301,7 @@ template <int DH> struct Consumer {
     const uint32_t kt = sk + stage(t) * C::KV_BYTES;
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
+    for (int kk = 0; kk < C::PW / 16; ++kk) {
       const uint32_t off = (kk / 4) * C::Q_HALF + (kk % 4) * 32;
       wgmma_ss_n128(sc, sw128_desc(qa + off, 16, 1024),
                     sw128_desc(kt + off, 16, 1024), kk > 0);
@@ -290,7 +314,7 @@ template <int DH> struct Consumer {
   // next 8 keys), head-dim halves LBO apart
   __device__ __forceinline__ void issue_pv(int t) {
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
+    for (int n = 0; n < C::PW / 8; ++n) {
       acc[4 * n] *= c0;
       acc[4 * n + 1] *= c0;
       acc[4 * n + 2] *= c1;
@@ -389,7 +413,7 @@ template <int DH> struct Consumer {
   // Tiles [0, n_full) need no mask, [n_full, n_tiles) do.
   __device__ __forceinline__ void run(int n_tiles, int n_full) {
 #pragma unroll
-    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < C::PW / 2; ++i) acc[i] = 0.f;
     m0 = m1 = NEG_INF;
     l0 = l1 = 0.f;
     if (n_tiles == 0) return;
@@ -520,7 +544,8 @@ __global__ void __launch_bounds__(NTH, 1)
     // epilogue: acc / max(l, 1e-30) in bf16 (as acc times the correctly
     // rounded reciprocal, within an fp32 ulp of the quotient) over this
     // warpgroup's own Q rows (its last Q K^T has completed), then one TMA
-    // store of the tile
+    // store of the tile, which clips columns at or past dh (and rows past
+    // Sq)
     float l0 = c.l0, l1 = c.l1;
     l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
@@ -528,7 +553,7 @@ __global__ void __launch_bounds__(NTH, 1)
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float d0 = 1.f / fmaxf(l0, 1e-30f), d1 = 1.f / fmaxf(l1, 1e-30f);
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
+    for (int n = 0; n < C::PW / 8; ++n) {
       const int col = 8 * n + 2 * c.t4;
       unsigned char* half = sbase + (col / BOX) * C::Q_HALF;
       *reinterpret_cast<uint32_t*>(half + sw128_offset(r0, col % BOX)) =
@@ -626,8 +651,8 @@ int launch_dh(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// Called by flash_attention_launch (flash_attention.cu) for bf16 at dh 64
-// or 128 on 16-byte aligned bases: one launch on `stream`; drop_tile >= 0
+// Called by flash_attention_launch (flash_attention.cu) for bf16 at dh 64,
+// 112 or 128 on 16-byte aligned bases: one launch on `stream`; drop_tile >= 0
 // leaves that key tile out (a planted fault for the checks' control).
 int flash_wgmma_launch(const void* q, const void* k, const void* v, void* o,
                        int B, int Sq, int Sk, int H, int KV, int dh,
@@ -636,6 +661,9 @@ int flash_wgmma_launch(const void* q, const void* k, const void* v, void* o,
   if (dh == 64)
     return launch_dh<64>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale,
                          drop_tile, stream);
+  if (dh == 112)
+    return launch_dh<112>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale,
+                          drop_tile, stream);
   if (dh == 128)
     return launch_dh<128>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale,
                           drop_tile, stream);

@@ -17,12 +17,13 @@ launch, and never falls back), CPU tensors run
 :func:`flash_attention_plain`.  :func:`select_body` names the body:
 
 - ``"wgmma"`` (``csrc/flash_wgmma.cu``): TMA-fed, warp-specialised wgmma;
-  bf16 at dh 64 and 128 on 16-byte aligned bases, the model path;
-- ``"mma_sync"`` (``csrc/flash_attention.cu``, ``flash_mma_kernel``): the
-  same inputs on ``mma.sync``, kept as the yardstick the wgmma body is
-  timed against; only an explicit ``body="mma_sync"`` runs it;
+  bf16 at dh 64, 112 and 128 on 16-byte aligned bases, the model path;
+- ``"mma_sync"`` (``csrc/flash_attention.cu``, ``flash_mma_kernel``): bf16
+  at dh 64 and 128 on aligned bases on ``mma.sync``, kept as the yardstick
+  the wgmma body is timed against; only an explicit ``body="mma_sync"``
+  runs it;
 - ``"fp32_pipes"`` (``flash_kernel``): fp32, other head dims, unaligned
-  bases.
+  bases; any input when named.
 
 All take ``Sq % block_q == 0`` and, under ``causal``, ``Sk % block_k ==
 0`` as the TPU kernel does (``ops.py`` pads).  Non-causal calls take any
@@ -47,6 +48,8 @@ BODIES = {"fp32_pipes": 0, "mma_sync": 1, "wgmma": 2}
 LAUNCHES = {"flash_attention": 0}
 # the same launches by the body that ran
 PATH_LAUNCHES = {"wgmma": 0, "mma_sync": 0, "fp32_pipes": 0}
+# the bf16 head dims each tensor-core body takes (on 16-byte aligned bases)
+TENSOR_CORE_DH = {"wgmma": (64, 112, 128), "mma_sync": (64, 128)}
 
 
 def reset_launches() -> None:
@@ -58,18 +61,22 @@ def reset_launches() -> None:
 def select_body(dtype, dh: int, aligned: bool, body=None) -> str:
     """The CUDA body for inputs of ``dtype`` at head dim ``dh`` whose bases
     are all 16-byte aligned (``aligned``): ``body`` if it can take them
-    (else ``ValueError``), or by default ``"wgmma"`` for bf16 at dh 64 and
-    128 on aligned bases and ``"fp32_pipes"`` for everything else."""
-    tensor_cores = dtype == torch.bfloat16 and dh in (64, 128) and aligned
+    (else ``ValueError``), or by default ``"wgmma"`` for bf16 at dh 64, 112
+    and 128 on aligned bases and ``"fp32_pipes"`` for everything else."""
+    def takes(name):
+        return (dtype == torch.bfloat16 and aligned
+                and dh in TENSOR_CORE_DH[name])
     if body is None:
-        return "wgmma" if tensor_cores else "fp32_pipes"
+        return "wgmma" if takes("wgmma") else "fp32_pipes"
     if body not in BODIES:
         raise ValueError(f"unknown flash-attention body {body!r}; the "
                          f"bodies are {', '.join(BODIES)}")
-    if body != "fp32_pipes" and not tensor_cores:
-        raise ValueError(f"the {body} body takes bfloat16 at head dims 64 "
-                         f"and 128 on 16-byte aligned bases, got {dtype} at "
-                         f"dh {dh}{'' if aligned else ', unaligned'}")
+    if body != "fp32_pipes" and not takes(body):
+        *most, last = TENSOR_CORE_DH[body]
+        raise ValueError(f"the {body} body takes bfloat16 at head dims "
+                         f"{', '.join(map(str, most))} and {last} on 16-byte "
+                         f"aligned bases, got {dtype} at dh {dh}"
+                         f"{'' if aligned else ', unaligned'}")
     return body
 
 

@@ -2,10 +2,15 @@
 of ``csrc/flash_wgmma.cu`` made by text substitution, report what ptxas
 made of each (registers at entry, spills, its notes; from the SASS the
 highest register, HGMMA and ``WARPGROUP.DEPBAR`` counts: one DEPBAR per
-HGMMA means ptxas serialised the products) and time each at the served
-shape (B 8, S 2,048, H 16, KV 8, dh 128, bf16, causal), in turns.
+HGMMA means ptxas serialised the products) and time each at a launch shape
+(bf16, causal), in turns: by default qwen3-0.6b's served prefill (B 8, S
+2,048, H 16, KV 8, dh 128), with ``--shape zamba2`` zamba2-7b's shared
+attention (B 8, S 2,048, H 32, KV 32, dh 112).
 
     python -m repro_torch.kernels.flash_attention.variants [--out FILE]
+        [--shape qwen3|zamba2] [--variants a,b]
+
+``--variants a,b`` builds and times only those beside "design".
 
 The knock-out variants leave a part of the work out to show what it
 costs; their outputs are wrong and only the variants marked ``checked``
@@ -40,9 +45,17 @@ _K_LOAD = [("""        mbar_expect_tx(full_k + 8 * s, C::KV_BYTES);
                    h * BOX, kvh, t * BK, b);""",
             "        mbar_arrive(full_k + 8 * s);")]
 
+# launch shapes (B, S, H, KV, dh)
+SHAPES = {"qwen3": (8, 2048, 16, 8, 128), "zamba2": (8, 2048, 32, 32, 112)}
+
 # name: (checked, [(old, new), ...]) applied to flash_wgmma.cu
 VARIANTS = {
     "design": (True, []),
+    # dh 112 on the dh-128 products: Q K^T takes 8 k-steps and P V n 128,
+    # over the zero-filled columns 112-127 of the second half (the same
+    # kernel as the design at dh 64 and 128)
+    "pad128": (True, [("static constexpr int PW = DH;",
+                       "static constexpr int PW = HALVES * BOX;")]),
     # the two consumers issue their products without taking turns
     "no_pingpong": (True, [
         ('asm volatile("bar.sync %0, %1;" ::"r"(2 + cw), "n"(2 * WG));', ""),
@@ -55,8 +68,8 @@ VARIANTS = {
          "    softmax<MASK>(sc, t);\n    pack_p(sc);\n    wg_wait<0>();"),
         ("    mbar_arrive(empty_v + 8 * stage(t - 1));\n    pack_p(sc);",
          "    mbar_arrive(empty_v + 8 * stage(t - 1));")]),
-    "stages3": (True, [("STAGES = DH == 128 ? 2 : 4;",
-                        "STAGES = DH == 128 ? 3 : 4;")]),
+    "stages3": (True, [("STAGES = HALVES == 2 ? 2 : 4;",
+                        "STAGES = HALVES == 2 ? 3 : 4;")]),
     # knock-outs: an FMA in place of each exp2, no P V, no Q K^T
     "no_exp2": (False, [('asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : '
                          '"f"(x));', "y = fmaf(x, 1e-30f, 1.f);")]),
@@ -72,20 +85,20 @@ VARIANTS = {
 }
 
 
-def _ptxas(lib: kbuild.Library) -> dict:
-    """ptxas and SASS facts of flash_wgmma_kernel<128>."""
+def _ptxas(lib: kbuild.Library, dh: int) -> dict:
+    """ptxas and SASS facts of flash_wgmma_kernel<dh>."""
     log = lib.info["log"]
-    entry = V.ptxas_entry(log, "flash_wgmma_kernelILi128E")
+    entry = V.ptxas_entry(log, f"flash_wgmma_kernelILi{dh}E")
     notes = sorted({f"{code}: {text}" for code, text in re.findall(
-        r"\((C7\d+)\) Potential Performance Loss: (.*?) in the function "
-        r"'\w*flash_wgmma_kernelILi128", log)})
+        rf"\((C7\d+)\) Potential Performance Loss: (.*?) in the function "
+        rf"'\w*flash_wgmma_kernelILi{dh}E", log)})
     facts = dict(entry_registers=entry["registers"],
                  spill_bytes=entry["spill_bytes"], ptxas_notes=notes)
     cuobjdump = os.path.join(os.path.dirname(kbuild.nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib.info["path"]],
                           capture_output=True, text=True).stdout
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
-        if "flash_wgmma_kernelILi128" in fn.split("\n")[0]:
+        if f"flash_wgmma_kernelILi{dh}E" in fn.split("\n")[0]:
             ins = [t.strip() for t in re.findall(
                 r"/\*[0-9a-f]{4,5}\*/\s+([^;]*);", fn)]
             facts.update(
@@ -99,21 +112,33 @@ def _ptxas(lib: kbuild.Library) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="write the results as JSON here")
+    ap.add_argument("--shape", choices=SHAPES, default="qwen3",
+                    help="the launch shape to time (default qwen3)")
+    ap.add_argument("--variants", help="comma-separated names of VARIANTS "
+                    "to build and time beside the design (default: all)")
     args = ap.parse_args(argv)
+    table = VARIANTS
+    if args.variants:
+        names = {"design", *args.variants.split(",")}
+        if names - set(VARIANTS):
+            raise SystemExit(f"variants: unknown variants "
+                             f"{sorted(names - set(VARIANTS))}")
+        table = {n: t for n, t in VARIANTS.items() if n in names}
     if not torch.cuda.is_available():
         raise SystemExit("variants: no CUDA device; this runs on a card")
-    libs = V.build_variants(fbuild.LIB, "flash_wgmma.cu", VARIANTS)
+    libs = V.build_variants(fbuild.LIB, "flash_wgmma.cu", table)
+    B, S, H, KV, dh = SHAPES[args.shape]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2048)
     rnd = lambda *s: (torch.randn(s, generator=gen, device=dev)
                       * 0.5).to(torch.bfloat16)
-    q, k, v = rnd(8, 2048, 16, 128), rnd(8, 2048, 8, 128), rnd(8, 2048, 8, 128)
+    q, k, v = rnd(B, S, H, dh), rnd(B, S, KV, dh), rnd(B, S, KV, dh)
     want = FK.flash_attention_plain(q, k, v, causal=True).float()
     run = lambda: FK.flash_attention_cuda(q, k, v, causal=True, body="wgmma")
     results = {}
     for name, lib in libs.items():
-        results[name] = dict(_ptxas(lib), checked=VARIANTS[name][0])
-        if VARIANTS[name][0]:
+        results[name] = dict(_ptxas(lib, dh), checked=table[name][0])
+        if table[name][0]:
             with V.loaded_from(fbuild, lib):
                 err = float((run().float() - want).abs().max())
             results[name]["max_abs_err"] = err
@@ -131,10 +156,13 @@ def main(argv=None) -> int:
               f"{r['depbar']}; {'; '.join(r['ptxas_notes']) or 'no notes'}"
               + (f"; max |err| {r['max_abs_err']:.3g}" if r["checked"]
                  else "; not checked (knock-out)"))
-    print(f"card: {card}")
+    print(f"shape {args.shape} (B, S, H, KV, dh) {SHAPES[args.shape]}; "
+          f"card: {card}")
     if args.out:
         with open(args.out, "w") as f:
-            json.dump(dict(card=card, variants=results), f, indent=1)
+            json.dump(dict(card=card, shape=args.shape,
+                           dims=SHAPES[args.shape], variants=results), f,
+                      indent=1)
     return 0
 
 

@@ -140,6 +140,22 @@ def test_qwen3_head_shape(dtype):
     np.testing.assert_allclose(_np(got), _np(want), atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("S", [256, 250])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zamba2_head_shape(dtype, S):
+    """zamba2-7b's shared attention: 32 query heads on 32 KV heads, dh 112
+    (the wgmma body's two 64-column halves, the second zero-filled past
+    column 112), at the wrapper's default blocks, a block multiple and a
+    ragged length."""
+    arrs = _qkv(1, S, S, 32, 32, 112, seed=112)
+    jd = jnp.bfloat16 if dtype == "bfloat16" else dtype
+    want = j_flash(*_jax(arrs, jd))
+    got = t_ops.flash_attention(*_torch(arrs, dtype), device="cpu")
+    assert tuple(got.shape) == (1, S, 32, 112)
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(_np(got), _np(want), atol=TOL[dtype])
+
+
 def test_non_causal_needs_block_multiple():
     """The JAX wrapper's contract, copied: non-causal with Sk not a block
     multiple raises ValueError (ROADMAP §3 lists it as a reference fault)."""
@@ -179,18 +195,21 @@ def test_entry_points_default_to_the_card(monkeypatch):
 @pytest.mark.parametrize("dtype,dh,aligned,body,want", [
     ("bfloat16", 64, True, None, "wgmma"),
     ("bfloat16", 128, True, None, "wgmma"),
+    ("bfloat16", 112, True, None, "wgmma"),
     ("float32", 128, True, None, "fp32_pipes"),
     ("bfloat16", 80, True, None, "fp32_pipes"),
     ("bfloat16", 128, False, None, "fp32_pipes"),
     ("bfloat16", 64, True, "mma_sync", "mma_sync"),
     ("bfloat16", 128, True, "fp32_pipes", "fp32_pipes"),
+    ("bfloat16", 112, True, "fp32_pipes", "fp32_pipes"),
     ("float32", 80, False, "fp32_pipes", "fp32_pipes"),
-], ids=["bf16-64", "bf16-128", "fp32", "dh80", "unaligned", "mma_sync",
-        "fp32_pipes-bf16", "fp32_pipes-fp32"])
+], ids=["bf16-64", "bf16-128", "bf16-112", "fp32", "dh80", "unaligned",
+        "mma_sync", "fp32_pipes-bf16", "fp32_pipes-dh112",
+        "fp32_pipes-fp32"])
 def test_select_body(dtype, dh, aligned, body, want):
-    """The model path (bf16 at dh 64 / 128 on aligned bases) takes the wgmma
-    body by default, everything else the fp32 pipes; a named body that can
-    take the inputs is kept."""
+    """The model path (bf16 at dh 64 / 112 / 128 on aligned bases) takes the
+    wgmma body by default, everything else the fp32 pipes; a named body
+    that can take the inputs is kept."""
     assert t_kernel.select_body(getattr(torch, dtype), dh, aligned,
                                 body) == want
 
@@ -199,10 +218,12 @@ def test_select_body(dtype, dh, aligned, body, want):
     ("float32", 128, True, "wgmma", "takes bfloat16"),
     ("bfloat16", 80, True, "wgmma", "takes bfloat16"),
     ("bfloat16", 128, False, "wgmma", "unaligned"),
+    ("bfloat16", 112, False, "wgmma", "unaligned"),
     ("float32", 64, True, "mma_sync", "takes bfloat16"),
+    ("bfloat16", 112, True, "mma_sync", "head dims 64 and 128"),
     ("bfloat16", 128, True, "tensor_cores", "unknown"),
-], ids=["wgmma-fp32", "wgmma-dh80", "wgmma-unaligned", "mma_sync-fp32",
-        "unknown"])
+], ids=["wgmma-fp32", "wgmma-dh80", "wgmma-unaligned", "wgmma-dh112-unaligned",
+        "mma_sync-fp32", "mma_sync-dh112", "unknown"])
 def test_select_body_refuses(dtype, dh, aligned, body, match):
     """A named body that cannot take the inputs raises: nothing falls back
     to another body."""

@@ -89,9 +89,9 @@ def test_cuda_flash_kernel_matches_plain(cuda_device, monkeypatch):
                         _assert_close(got[:, :S], want[:, :S])
 
 
-# (H, KV): G 1, 2, 8 (qwen3-32b's 64/8) and 48 (granite-34b's 48/1: 96 live
-# rows of the wgmma body's 128)
-WGMMA_HEADS = [(8, 8), (16, 8), (64, 8), (48, 1)]
+# (H, KV): G 1, 2, 4 (phi3.5-moe's 32/8), 8 (qwen3-32b's 64/8) and 48
+# (granite-34b's 48/1: 96 live rows of the wgmma body's 128)
+WGMMA_HEADS = [(8, 8), (16, 8), (32, 8), (64, 8), (48, 1)]
 # (Sq, Sk, causal): a ragged q tile; few queries over many keys, both ways;
 # a full square
 WGMMA_SHAPES = [(250, 250, True), (128, 1024, False), (128, 1024, True),
@@ -99,14 +99,15 @@ WGMMA_SHAPES = [(250, 250, True), (128, 1024, False), (128, 1024, True),
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 112, 128])
 @pytest.mark.parametrize("H,KV", WGMMA_HEADS,
                          ids=[f"G{h // kv}" for h, kv in WGMMA_HEADS])
 @pytest.mark.parametrize("Sq,Sk,causal", WGMMA_SHAPES,
                          ids=["ragged", "keys", "keys-causal", "square"])
 def test_wgmma_body_matches_plain(cuda_device, dh, H, KV, Sq, Sk, causal):
-    """The wgmma body (the model path) against the plain version; the call
-    counts one launch, under "wgmma"."""
+    """The wgmma body (the model path) against the plain version at dh 64,
+    128 and 112 (two 64-column halves, the second's columns 112-127 zero
+    filled); the call counts one launch, under "wgmma"."""
     rng = np.random.default_rng(Sq + Sk + H + dh)
     f = lambda *s: torch.from_numpy(
         (rng.standard_normal(s) * 0.5).astype(np.float32)).to(
@@ -129,40 +130,73 @@ def test_wgmma_body_matches_plain(cuda_device, dh, H, KV, Sq, Sk, causal):
 @pytest.mark.parametrize("S", [250, 2048])
 def test_fp32_pipes_at_dh112_matches_plain(cuda_device, S):
     """zamba2's shared attention: bf16 at dh 112, 32 query heads on 32 KV
-    heads (G 1), causal.  The default body is the fp32 pipes (the wgmma
-    body takes dh 64 and 128 only); the call counts one launch under it and
-    equals the plain version."""
+    heads (G 1), causal.  The default body is wgmma and the fp32 pipes run
+    by name; each call counts one launch under its body and equals the
+    plain version."""
     q, k, v = _qkv(2, S, 32, 32, 112, "bfloat16", S + 112, cuda_device)
     qp, kp, vp, bq, bk = t_ops.pad_blocks(q, k, v, causal=True)
-    paths = dict(t_kernel.PATH_LAUNCHES)
-    got = t_kernel.flash_attention_cuda(qp, kp, vp, causal=True, block_q=bq,
-                                        block_k=bk)
-    torch.cuda.synchronize()
-    assert {key: t_kernel.PATH_LAUNCHES[key] - n
-            for key, n in paths.items()} == {"wgmma": 0, "mma_sync": 0,
-                                             "fp32_pipes": 1}
     want = t_kernel.flash_attention_plain(qp, kp, vp, causal=True,
                                           block_q=bq, block_k=bk)
-    _assert_close(got[:, :S], want[:, :S])
+    for body, ran in ((None, "wgmma"), ("fp32_pipes", "fp32_pipes")):
+        paths = dict(t_kernel.PATH_LAUNCHES)
+        got = t_kernel.flash_attention_cuda(qp, kp, vp, causal=True,
+                                            block_q=bq, block_k=bk,
+                                            body=body)
+        torch.cuda.synchronize()
+        assert {key: t_kernel.PATH_LAUNCHES[key] - n
+                for key, n in paths.items()} == {
+            key: int(key == ran) for key in paths}
+        _assert_close(got[:, :S], want[:, :S])
 
 
 @pytest.mark.gpu
-def test_wgmma_refuses_dh112(cuda_device):
-    """Asked for by name, the wgmma body refuses bf16 at dh 112 and
-    launches nothing."""
-    q, k, v = _qkv(1, 256, 32, 32, 112, "bfloat16", 9, cuda_device)
+def test_wgmma_dh112_store_leaves_neighbours(cuda_device):
+    """The wgmma body's TMA store clips the second half's columns 112-127
+    and the rows past Sq: launched straight into the first 250 positions of
+    a sentinel-filled [1, 256, 32, 112] buffer, it writes those positions
+    (equal to the plain version) and leaves the next 6 untouched, each of
+    whose first 16 columns the last head's columns 112-127 would reach."""
+    from repro_torch.kernels.flash_attention import build
+
+    Sq, H, dh = 250, 32, 112
+    q, k, v = _qkv(1, Sq, H, H, dh, "bfloat16", 112, cuda_device)
+    sentinel = 3.0
+    big = torch.full((1, 256, H, dh), sentinel, dtype=torch.bfloat16,
+                     device=cuda_device)
+    o = big[:, :Sq]
+    assert o.is_contiguous()
+    rc = build.load().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, Sq, Sq, H,
+        H, dh, 1, 1, 1.0 / dh ** 0.5, t_kernel.BODIES["wgmma"], -1,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    assert bool((big[:, Sq:] == sentinel).all())
+    qp, kp, vp, bq, bk = t_ops.pad_blocks(q, k, v, causal=True)
+    want = t_kernel.flash_attention_plain(qp, kp, vp, causal=True,
+                                          block_q=bq, block_k=bk)
+    _assert_close(o, want[:, :Sq])
+
+
+@pytest.mark.gpu
+def test_wgmma_refuses_dh80(cuda_device):
+    """Asked for by name, the wgmma body refuses bf16 at dh 80 (the fp32
+    pipes' padded width) and launches nothing."""
+    q, k, v = _qkv(1, 256, 8, 8, 80, "bfloat16", 9, cuda_device)
     paths = dict(t_kernel.PATH_LAUNCHES)
-    with pytest.raises(ValueError, match="head dims 64 and 128"):
+    with pytest.raises(ValueError, match="head dims 64, 112 and 128"):
         t_kernel.flash_attention_cuda(q, k, v, causal=True, block_q=256,
                                       block_k=256, body="wgmma")
     assert t_kernel.PATH_LAUNCHES == paths
 
 
 @pytest.mark.gpu
-def test_wgmma_dropped_tile_fails_the_check(cuda_device):
+@pytest.mark.parametrize("H,KV,dh", [(16, 8, 128), (32, 32, 112)],
+                         ids=["dh128", "dh112"])
+def test_wgmma_dropped_tile_fails_the_check(cuda_device, H, KV, dh):
     """The check catches a fault in the wgmma body: with its 128-key tile 4
     left out, the output leaves the bf16 limits; without, it stays."""
-    q, k, v = _qkv(1, 1024, 16, 8, 128, "bfloat16", 5, cuda_device)
+    q, k, v = _qkv(1, 1024, H, KV, dh, "bfloat16", 5, cuda_device)
     want = t_kernel.flash_attention_plain(q, k, v, causal=True)
     _assert_close(t_kernel.flash_attention_cuda(q, k, v, causal=True), want)
     with pytest.raises(AssertionError):

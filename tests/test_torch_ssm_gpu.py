@@ -1,7 +1,7 @@
 """The SSM and hybrid families on the card against the same code on the
 CPU, same weights: the Mamba2 layer (forward, its states, decode,
 gradients), decode against the forward, a zamba2 smoke model at dh 112
-whose shared attention runs the flash kernel's fp32-pipe body, and train
+whose shared attention runs the flash kernel's wgmma body, and train
 steps of both smoke models.
 
 It imports no JAX, so it also runs on a machine with a card and no JAX:
@@ -124,10 +124,10 @@ def test_decode_continues_the_forward_on_card(cuda_device):
 
 
 @pytest.mark.gpu
-def test_hybrid_prefill_dh112_runs_fp32_pipes(cuda_device, monkeypatch):
+def test_hybrid_prefill_dh112_runs_wgmma(cuda_device, monkeypatch):
     """A zamba2 smoke model at d_head 112 and G 1 (zamba2-7b's), bf16: its
     prefill launches the flash kernel once per shared-block application,
-    every launch on the fp32-pipe body and equal to the plain version on
+    every launch on the wgmma body and equal to the plain version on
     its own inputs (to the limits ``chip_smoke.py`` holds zamba2's to);
     its logits and caches equal the CPU's within
     2**-5."""
@@ -155,7 +155,8 @@ def test_hybrid_prefill_dh112_runs_fp32_pipes(cuda_device, monkeypatch):
     finally:
         FK.flash_attention_cuda = launch
     apps = TFM.n_shared_apps(cfg)
-    assert len(captured) == apps == FK.PATH_LAUNCHES["fp32_pipes"] == 2
+    assert len(captured) == apps == FK.PATH_LAUNCHES["wgmma"] == 2
+    assert FK.PATH_LAUNCHES["fp32_pipes"] == 0
     for q, k, v, kw, o in captured:
         assert q.shape[-1] == 112
         want = FK.flash_attention_plain(q, k, v, **kw)
