@@ -243,7 +243,24 @@ Phases (each raises on failure, and the script then exits non-zero):
    qwen2-vl at 4 of 28 layers (2 x 1,024, 3 steps), under ``"dots"``: finite losses, 36 and 8 flash launches a
    step on wgmma, step 0's held against the plain version, every leaf of
    the layers moved with a gradient; step ms, tokens/s, peak;
-20. report — a ``kernels`` JSON line, the card's name and power limit, and
+20. expert parallelism and the dry-run — phi3.5-moe's prefill at 4
+   layers with ``moe_ep`` over a 1 x 4 mesh of the card against the
+   capacity path, and the dry-run's roofline of phase 16's cell against
+   its measured step;
+21. the rest of the dense family — seeded fp32 weights at published
+   widths: granite-8b whole (36 layers, G 4), qwen3-32b at 16 of 64 (G 8,
+   ``qk_norm``) and granite-34b at 24 of 88 (MQA, G 48; the plain GELU
+   MLP), each one ``BatchServer`` wave of 8 x 2,048 tokens, 32 new, through
+   :func:`serve_wave`: one flash launch a layer on the wgmma body, each
+   held against the plain version to both limits; for 2 requests the
+   served logits against one ``forward`` within DENSE_E2E_TOL and a decode
+   given a zeroed K/V cache past it (:func:`dense_e2e`); each launch shape
+   alone beside ``scaled_dot_product_attention``; ``launch.train.main`` on
+   each at 8, 2 and 4 layers, 3 steps under ``"dots"`` (finite losses,
+   step 0's launches held, every leaf moved with a gradient); one step of
+   granite-8b's training cut with ``n_micro`` 2 against 1 (losses within
+   TRAIN_LOSS0_TOL, gradients within GRAD_TOL);
+22. report — a ``kernels`` JSON line, the card's name and power limit, and
    the final ``{"ok": true, ...}`` line.
 
 It needs one card and exits non-zero without one.  It imports nothing of
@@ -314,7 +331,15 @@ FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 # weights p to bf16 against the running max of their own key tiles, which
 # moves outputs by about a percent of their row's mean |o| between two
 # tilings.  A key tile dropped or mis-rescaled moves late rows by tens of
-# percent.  phase_flash_control prints both sides on the card.
+# percent.  phase_flash_control prints both sides on the card.  Where |want|
+# reaches 4, one bf16 ulp (0.03125) exceeds 2e-2, and two correct
+# roundings of one fp32 value may lie that far apart: granite-34b's served
+# prefill (phase 21) has 19 outputs at |want| 4.0-4.1 whose exact fp32
+# value lies 0.49-0.50 ulp above the lower bf16 neighbour, kernel and plain
+# rounding it to opposite sides (each within 0.0160 of the exact value
+# over the launch's batch row).  So the absolute bf16 limit at an element
+# is the larger of 2e-2 and one bf16 ulp of its |want|, which is 2e-2
+# wherever |want| < 4.
 FLASH_BF16_ULPS = 2
 FLASH_BF16_FLOOR = 2 ** -4
 # the served model (configs/qwen3_0_6b.py at full width) and its long wave
@@ -479,6 +504,27 @@ EP_MESH = (1, 4)
 EP_LAYER_TOL = 1e-4
 EP_LOGITS_TOL = SSM_E2E_TOL["float32"]
 EP_TIMED = 3                  # CUDA-event repeats of one MoE layer, each path
+# phase 21, the rest of the dense family at published widths with fp32
+# weights: arch -> (layers served, layers trained, training batch).
+# granite-8b serves whole (8.25 B parameters, 30.75 GiB); qwen3-32b (64
+# layers, 131 GB) and granite-34b (88, 136 GB) do not fit in fp32 and serve
+# at 16 and 24 layers (34.86 and 36.14 GiB), cut as phase 17 cuts phi.
+# Training holds 16 B a parameter (weights, gradients, AdamW moments):
+# granite-8b at 8 layers (2.15 B), qwen3-32b at 2 (2.53 B: its 152,064 x
+# 5,120 embeddings, untied, are 1.56 B), granite-34b at 4 (2.12 B).  The
+# three launch the flash kernel at dh 128 with G 4 (32 heads on 8), G 8
+# (64 on 8) and G 48 (MQA: 48 on 1, 2 query positions a wgmma CTA).
+DENSE_CUTS = {"granite-8b": (36, 8, 8), "qwen3-32b": (16, 2, 2),
+              "granite-34b": (24, 4, 2)}
+DENSE_TRAIN_STEPS = 3
+DENSE_LEAVES = ("['embed']", "['unembed']", "['final_norm']", "['layers']")
+DENSE_MICRO_ARCH = "granite-8b"
+# prefill + decode against one forward (dense_e2e), bf16, per arch: phase
+# 12b's bounds, and a decode given a zeroed K/V cache (the planted fault)
+# past them
+DENSE_E2E_TOL = {arch: {"bfloat16": {"max": LM_E2E_MAX_TOL,
+                                     "mean": LM_E2E_MEAN_TOL}}
+                 for arch in DENSE_CUTS}
 
 
 def log(*a):
@@ -1743,10 +1789,11 @@ def bf16_ulp(x):
 
 
 def flash_check(got, want, absolute=True):
-    """-> (max |got - want|, the largest share of a limit): max |err|
-    against FLASH_TOL (unless ``absolute`` is false), and in bf16 also each
-    |err| against FLASH_BF16_ULPS ulps of |want| + FLASH_BF16_FLOOR x its
-    row's mean |want|.  Passes when the share <= 1."""
+    """-> (max |got - want|, the largest share of a limit): each |err|
+    against FLASH_TOL (unless ``absolute`` is false; in bf16 the larger of
+    FLASH_TOL and one bf16 ulp of |want|), and in bf16 also each |err|
+    against FLASH_BF16_ULPS ulps of |want| + FLASH_BF16_FLOOR x its row's
+    mean |want|.  Passes when the share <= 1."""
     import torch
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{tuple(got.shape)} {got.dtype} != "
@@ -1758,6 +1805,9 @@ def flash_check(got, want, absolute=True):
     share = err / FLASH_TOL[dname] if absolute else 0.0
     if want.dtype == torch.bfloat16:
         w = w.abs()
+        if absolute:
+            share = float((diff / bf16_ulp(w).clamp_min(
+                FLASH_TOL[dname])).max())
         limit = (FLASH_BF16_ULPS * bf16_ulp(w)
                  + FLASH_BF16_FLOOR * w.mean(dim=-1, keepdim=True))
         share = max(share, float((diff / limit).max()))
@@ -2143,8 +2193,9 @@ def check_captured(FK, captured):
         want = FK.flash_attention_plain(q, k, v, **kw)
         e, sh = flash_check(o, want)
         if not sh <= 1:
-            raise AssertionError(f"a prefill flash launch != plain: max "
-                                 f"|err| {e}, {sh:.3g} of the limit")
+            raise AssertionError(f"prefill flash launch {i} != plain: max "
+                                 f"|err| {e}, {sh:.3g} of the limits; "
+                                 f"{flash_worst(o, want)}")
         if sh > share:
             where = f"{flash_worst(o, want)} in launch {i}"
         err, share = max(err, e), max(share, sh)
@@ -2167,7 +2218,8 @@ def log_wave(name, r, card):
             f"{r['q_shape']}, all on the {r['body']} body; "
             f"{r['flash_launch_ms']:.4f} ms a launch ({lo:.4f}-{hi:.4f}) "
             f"against a bound of {r['flash_bound_ms']:.4f} ms) = plain: max "
-            f"|err| {r['max_abs_err']:.3g} (tol 2e-2), worst share "
+            f"|err| {r['max_abs_err']:.3g} (tol 2e-2, one ulp where |want| "
+            f">= 4), worst share "
             f"{r['share']:.3f} of the limits; of the elementwise limit alone "
             f"{r['where']}")
 
@@ -2969,6 +3021,24 @@ def e2e_against_forward(fns, cfg, params, served, S, forward_kw):
                 finite=bool(torch.isfinite(dec).all()))
 
 
+def dense_e2e(cfg, params, toks, new, max_seq, served=None, fault=False):
+    """Prefill + greedy decode against one forward for a dense model:
+    ``served`` (the outputs and the first rows' logits of a wave already
+    served) or a wave of ``toks`` [B, S] (a tensor on the model's device)
+    served here by :func:`greedy` into a ``max_seq`` cache; ``fault``
+    plants one for the check's control, each decode step given a K/V
+    cache zeroed after the prefill -> :func:`e2e_against_forward`'s
+    dict."""
+    from repro_torch.models.registry import get_model_fns
+    fns = get_model_fns(cfg)
+    if served is None:
+        zero = (lambda cache: [t.zero_() for t in cache.values()]) \
+            if fault else None
+        served = greedy(fns, cfg, params, toks, new, max_seq, {},
+                        corrupt=zero)
+    return e2e_against_forward(fns, cfg, params, served, toks.shape[1], {})
+
+
 def encdec_e2e(cfg, params, frames, prompts, new, device, served=None,
                fault=False):
     """Prefill + greedy decode against one forward for an enc-dec model:
@@ -3353,62 +3423,72 @@ def moved_with_gradient(state, start, prefixes):
     return moved
 
 
-def phase_encdec_vlm_train(FK, dev, card):
-    """Phase 19c: ``launch.train.main`` on whisper-base whole
-    (ENCDEC_TRAIN_BATCH x ENCDEC_TRAIN_SEQ tokens on zero frames, as the
-    JAX launcher trains it) and on qwen2-vl-7b at VLM_TRAIN_LAYERS of its
-    28 layers (text, VLM_TRAIN_BATCH x TRAIN_SEQ), ENCDEC_TRAIN_STEPS and
-    VLM_TRAIN_STEPS steps under ``"dots"``: finite losses; the flash
-    kernel on wgmma for every attention of each forward (twice a step
-    under ``"dots"``), each launch of step 0 held against the plain
-    version; every leaf of the layers (whisper: both stacks, the
-    cross-attention among them) moved with a gradient.  Step ms, tokens/s,
-    peak memory."""
+def train_held(FK, dev, card, arch, batch, steps, layers, seq, prefixes):
+    """``launch.train.main`` on ``arch`` (cut to ``layers`` layers where
+    given), B ``batch`` x S ``seq``, ``steps`` steps under the model's
+    remat: finite losses; the flash kernel on wgmma for every attention of
+    each forward (twice a step under ``"dots"``), each launch of step 0
+    held against the plain version; every leaf under ``prefixes`` (key
+    paths) moved from its seeded start with a gradient.  Logs step ms,
+    tokens/s and the peak -> :func:`train_main_run`'s dict with the
+    launches and the check."""
     from repro_torch.configs import get_config
     from repro_torch.models.registry import get_model_fns
 
-    out = {}
-    for arch, batch, steps, layers, seq, prefixes in (
-            (ENCDEC_ARCH, ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_STEPS, None,
-             ENCDEC_TRAIN_SEQ, ("['layers']", "['enc_layers']")),
-            (VLM_ARCH, VLM_TRAIN_BATCH, VLM_TRAIN_STEPS, VLM_TRAIN_LAYERS,
-             TRAIN_SEQ, ("['layers']",))):
-        cfg = get_config(arch)
-        if layers:
-            cfg = cfg.replace(n_layers=layers)
-        per_forward = cfg.enc_layers + 2 * cfg.n_layers if (
-            cfg.family == "encdec") else cfg.n_layers
-        per_step = per_forward * (1 if cfg.remat_policy == "everything"
-                                  else 2)
-        m = train_main_run(FK, arch, batch, steps, layers, capture=per_step,
-                           seq=seq)
-        state, captured = m.pop("state"), m.pop("captured")
-        want = per_step * steps
-        if (FK.LAUNCHES["flash_attention"] != want
-                or FK.PATH_LAUNCHES["wgmma"] != want):
-            raise AssertionError(f"{arch}: {steps} steps launched the flash "
-                                 f"bodies {FK.PATH_LAUNCHES}, not wgmma "
-                                 f"{want} times")
-        moved = moved_with_gradient(
-            state, get_model_fns(cfg).init_params(cfg, 0, dev), prefixes)
-        err, share, where, _ = hold_launches(FK, captured, dev)
-        del state, captured
-        free_card()
-        m.update(launches=want, max_abs_err=err, share=share,
-                 params=cfg.param_count())
-        log(f"[{cfg.family}] train {arch}"
-            + (f", {layers} of {get_config(arch).n_layers} layers" if layers
-               else " whole")
-            + f" ({cfg.param_count():,} parameters), {batch} x {seq} "
-            f"tokens, {steps} steps in {m['wall_s']:.1f}s: loss "
-            f"{m['losses'][0]:.4f} -> {m['losses'][-1]:.4f}; step "
-            f"{m['step_ms']:.1f} ms, {m['tokens_per_s']:,.0f} tokens/s, peak "
-            f"memory {m['peak_gib']:.2f} GiB; flash launches {want} on wgmma; "
-            f"{moved} leaves of the layers moved with a gradient; step 0's "
-            f"{per_step} launches = plain: max |err| {err:.3g}, worst share "
-            f"{share:.3f} of the elementwise limit, {where}; card: {card}")
-        out[cfg.family] = m
-    return out
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    per_forward = cfg.enc_layers + 2 * cfg.n_layers if (
+        cfg.family == "encdec") else cfg.n_layers
+    per_step = per_forward * (1 if cfg.remat_policy == "everything" else 2)
+    m = train_main_run(FK, arch, batch, steps, layers, capture=per_step,
+                       seq=seq)
+    state, captured = m.pop("state"), m.pop("captured")
+    want = per_step * steps
+    if (FK.LAUNCHES["flash_attention"] != want
+            or FK.PATH_LAUNCHES["wgmma"] != want):
+        raise AssertionError(f"{arch}: {steps} steps launched the flash "
+                             f"bodies {FK.PATH_LAUNCHES}, not wgmma "
+                             f"{want} times")
+    moved = moved_with_gradient(
+        state, get_model_fns(cfg).init_params(cfg, 0, dev), prefixes)
+    del state
+    free_card()
+    err, share, where, _ = hold_launches(FK, captured, dev)
+    shape = tuple(captured[0][0].shape)
+    del captured
+    free_card()
+    m.update(launches=want, max_abs_err=err, share=share,
+             params=cfg.param_count())
+    log(f"[{cfg.family}] train {arch}"
+        + (f", {layers} of {get_config(arch).n_layers} layers" if layers
+           else " whole")
+        + f" ({cfg.param_count():,} parameters), {batch} x {seq} "
+        f"tokens, {steps} steps in {m['wall_s']:.1f}s: loss "
+        f"{m['losses'][0]:.4f} -> {m['losses'][-1]:.4f}; step "
+        f"{m['step_ms']:.1f} ms, {m['tokens_per_s']:,.0f} tokens/s, peak "
+        f"memory {m['peak_gib']:.2f} GiB; flash launches {want} on wgmma; "
+        f"{moved} leaves under {' '.join(prefixes)} moved "
+        f"with a gradient; step 0's {per_step} launches (q {shape}) = "
+        f"plain: max |err| {err:.3g}, worst share {share:.3f} of the "
+        f"elementwise limit, {where}; card: {card}")
+    return m
+
+
+def phase_encdec_vlm_train(FK, dev, card):
+    """Phase 19c: :func:`train_held` on whisper-base whole
+    (ENCDEC_TRAIN_BATCH x ENCDEC_TRAIN_SEQ tokens on zero frames, as the
+    JAX launcher trains it; every leaf of both stacks, the cross-attention
+    among them, must move) and on qwen2-vl-7b at VLM_TRAIN_LAYERS of its
+    28 layers (text, VLM_TRAIN_BATCH x TRAIN_SEQ), ENCDEC_TRAIN_STEPS and
+    VLM_TRAIN_STEPS steps under ``"dots"``."""
+    return {
+        "encdec": train_held(FK, dev, card, ENCDEC_ARCH, ENCDEC_TRAIN_BATCH,
+                             ENCDEC_TRAIN_STEPS, None, ENCDEC_TRAIN_SEQ,
+                             ("['layers']", "['enc_layers']")),
+        "vlm": train_held(FK, dev, card, VLM_ARCH, VLM_TRAIN_BATCH,
+                          VLM_TRAIN_STEPS, VLM_TRAIN_LAYERS, TRAIN_SEQ,
+                          ("['layers']",))}
 
 
 def block_attention_grads(cfg, blk, h, attn):
@@ -4476,6 +4556,133 @@ def phase_roofline_check(dev, card, trained):
                 measured_peak_gib=trained["peak_gib"], trace_s=traced_s)
 
 
+def phase_dense_serve(FK, dev, card, arch, n_layers):
+    """Phase 21a-c: a dense model at published widths (``n_layers`` of its
+    layers, seeded fp32 weights), one BatchServer wave of LM_BATCH x
+    LM_PROMPT tokens, LM_NEW new, through :func:`serve_wave` after a first
+    wave of 2 new tokens (timed apart): one flash launch a layer, all on
+    the wgmma body, each held against the plain version to both limits;
+    prefill and decode tokens/s, the peak.  For LM_E2E_ROWS requests the
+    served logits against one forward within DENSE_E2E_TOL, and a decode
+    given a zeroed K/V cache (the planted fault) past it
+    (:func:`dense_e2e`).  Then the launch shape alone beside
+    ``scaled_dot_product_attention``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import BatchServer
+
+    full = get_config(arch)
+    cfg = full.replace(n_layers=n_layers)
+    params, init_s, gib = seeded_params(cfg, dev, 21)
+    rng = np.random.default_rng(22)
+    prompts = [rng.integers(0, cfg.vocab_size, size=LM_PROMPT)
+               .astype(np.int32) for _ in range(LM_BATCH)]
+    t0 = time.perf_counter()
+    BatchServer(cfg, params, max_seq=LM_MAX_SEQ, batch=LM_BATCH,
+                device=dev).generate(prompts, max_new=2)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    free_card()
+    what = "whole" if n_layers == full.n_layers else (
+        f"{n_layers} of {full.n_layers} layers")
+    log(f"[dense] {arch} {what}: {cfg.param_count():,} parameters, "
+        f"{gib:.2f} GiB of fp32 weights made on the card in {init_s:.1f}s; "
+        f"H {cfg.n_heads} on KV {cfg.n_kv_heads}, dh {cfg.d_head}, "
+        f"{'SwiGLU' if cfg.mlp_gated else 'GELU'} MLP, qk_norm "
+        f"{cfg.qk_norm}; a first wave of the same prompts, 2 new tokens, "
+        f"{cold:.2f}s")
+    r = serve_wave(FK, dev, cfg, params, prompts, flash_layers=cfg.n_layers)
+    log_wave(arch, r, card)
+    toks = torch.as_tensor(np.stack(prompts[:LM_E2E_ROWS]), device=dev) \
+        .long()
+    sound = dense_e2e(cfg, params, toks, LM_NEW, LM_MAX_SEQ, served={
+        "outs": np.stack(r["outs"][:LM_E2E_ROWS]), "logits": r["logits"]})
+    bad = dense_e2e(cfg, params, toks, LM_NEW, LM_MAX_SEQ, fault=True)
+    tol = DENSE_E2E_TOL[arch]
+    check_e2e(arch, {"bfloat16": bad}, tol, card, tag="dense",
+              fault="a decode given a zeroed K/V cache")
+    check_e2e(arch, {"bfloat16": sound}, tol, card, tag="dense")
+    out = {k: r[k] for k in ("launches", "max_abs_err", "share",
+                             "prefill_s", "decode_s", "prefill_tps",
+                             "decode_tps", "peak_gib", "flash_launch_ms",
+                             "flash_ms_range", "flash_bound_ms")}
+    out.update(n_layers=n_layers, params=cfg.param_count(), weights_gib=gib,
+               e2e={k: sound[k] for k in ("max", "mean", "logit_std",
+                                          "argmax_agree")},
+               e2e_fault={k: bad[k] for k in ("max", "mean")})
+    del params, r
+    free_card()
+    out["alone"] = flash_library_alone(
+        FK, dev, (LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads,
+                  cfg.d_head), card, "dense")
+    return out
+
+
+def phase_dense_micro(FK, dev, card):
+    """Phase 21e: one ``make_train_step`` step of DENSE_MICRO_ARCH at its
+    training cut (B 8 x S TRAIN_SEQ from the launcher's token stream, step
+    0) with ``n_micro`` 1 and with 2 (two microbatches of 4 rows), each
+    from the same seeded parameters (clipping off, so the update sees the
+    raw gradients): the losses within TRAIN_LOSS0_TOL and every gradient
+    within GRAD_TOL of the one-microbatch step's (:func:`grad_shares`);
+    every forward's flash launches on the wgmma body."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStreamSpec, batch_for_step
+    from repro_torch.models import transformer as TFM
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import tree_leaves
+
+    arch = DENSE_MICRO_ARCH
+    _, n_layers, B = DENSE_CUTS[arch]
+    cfg = get_config(arch).replace(n_layers=n_layers)
+    batch = batch_for_step(TokenStreamSpec(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=B,
+        seed=0), 0)
+    opt = AdamWConfig(clip_norm=float("inf"))
+    runs, grads = {}, {}          # grads: n_micro -> the step's, on the host
+    for n_micro in (1, 2):
+        free_card()
+        state = TFM.train_state(TFM.init_params(cfg, 0, dev))
+
+        def keep(g, n=n_micro):
+            grads[n] = [t.cpu() for t in tree_leaves(g)]
+            return g
+
+        step = TFM.make_train_step(cfg, opt, n_micro, grad_transform=keep)
+        FK.reset_launches()
+        _, metrics = step(state, batch)
+        want = n_micro * 2 * cfg.n_layers
+        if (FK.LAUNCHES["flash_attention"] != want
+                or FK.PATH_LAUNCHES["wgmma"] != want):
+            raise AssertionError(f"n_micro {n_micro}: the step launched the "
+                                 f"flash bodies {FK.PATH_LAUNCHES}, not "
+                                 f"wgmma {want} times")
+        runs[n_micro] = dict(loss=float(metrics["loss"]),
+                             grad_norm=float(metrics["grad_norm"]),
+                             launches=want)
+        del state, step, metrics
+    free_card()
+    shares = {}
+    for i, (a, b) in enumerate(zip(grads[2], grads[1])):
+        shares.update(grad_shares({i: a.to(dev)}, {i: b.to(dev)}))
+    del grads
+    dloss = abs(runs[2]["loss"] - runs[1]["loss"])
+    worst = max(shares.values())
+    log(f"[dense] {arch} at {n_layers} layers, one step on {B} x {TRAIN_SEQ} "
+        f"tokens, n_micro 2 against 1: loss {runs[2]['loss']:.6f} against "
+        f"{runs[1]['loss']:.6f} (|d| {dloss:.3g}, tol {TRAIN_LOSS0_TOL}); "
+        f"grad norm {runs[2]['grad_norm']:.6f} against "
+        f"{runs[1]['grad_norm']:.6f}; the worst of the {len(shares)} "
+        f"gradients {worst:.3f} of the {GRAD_TOL} limit; flash launches "
+        f"{runs[2]['launches']} and {runs[1]['launches']} on wgmma; card: "
+        f"{card}")
+    if not (dloss <= TRAIN_LOSS0_TOL and worst <= 1):
+        raise AssertionError(f"n_micro 2 != 1: loss |d| {dloss}, worst "
+                             f"gradient share {worst}")
+    return dict(runs=runs, dloss=dloss, grad_share=worst)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4730,9 +4937,25 @@ def main() -> int:
     log(f"[slice15] phase 20 in {time.perf_counter() - t0:.1f}s on {card}")
     log("[slice15] " + json.dumps({"ep": ep, "roofline": roof}))
 
+    # 21. the rest of the dense family at published widths: granite-8b
+    # whole, qwen3-32b at 16 of 64 layers and granite-34b (MQA, the GELU
+    # MLP) at 24 of 88 served; each trained at a few layers; n_micro 2
+    # against 1 on granite-8b's training cut
+    t0 = time.perf_counter()
+    dense = {arch: phase_dense_serve(FK, dev, card, arch, cut[0])
+             for arch, cut in DENSE_CUTS.items()}
+    dense_trained = {arch: train_held(FK, dev, card, arch, cut[2],
+                                      DENSE_TRAIN_STEPS, cut[1], TRAIN_SEQ,
+                                      DENSE_LEAVES)
+                     for arch, cut in DENSE_CUTS.items()}
+    micro = phase_dense_micro(FK, dev, card)
+    log(f"[dense] phase 21 in {time.perf_counter() - t0:.1f}s on {card}")
+    log("[slice17] " + json.dumps({"serve": dense, "train": dense_trained,
+                                   "n_micro": micro}))
+
     log(f"[time] all phases in {time.perf_counter() - t_start:.1f}s")
 
-    # 21. report
+    # 22. report
     src = "src/repro_torch/kernels/wfa/csrc/wfa.cu"
     kernels = []
     for name, variant in (("wfa_score", "score"), ("wfa_trace", "trace")):
@@ -4830,7 +5053,9 @@ def main() -> int:
                      + hybrid_trained["launches"]
                      + encdec_served["launches"] + vlm_served["launches"]
                      + ev_trained["encdec"]["launches"]
-                     + ev_trained["vlm"]["launches"] + ep["launches"]),
+                     + ev_trained["vlm"]["launches"] + ep["launches"]
+                     + sum(d["launches"] for d in dense.values())
+                     + sum(d["launches"] for d in dense_trained.values())),
         "max_abs_err": max(max(flash_worst.values()), flash["max_abs_err"],
                            served["max_abs_err"], trained["max_abs_err"],
                            moe_served["naive"]["max_abs_err"],
@@ -4843,7 +5068,10 @@ def main() -> int:
                            vlm_served["max_abs_err"],
                            ev_trained["encdec"]["max_abs_err"],
                            ev_trained["vlm"]["max_abs_err"],
-                           ep["max_abs_err"]),
+                           ep["max_abs_err"],
+                           *(d["max_abs_err"] for d in dense.values()),
+                           *(d["max_abs_err"] for d in
+                             dense_trained.values())),
         # the largest share of a limit (max |err| against 3e-5 / 2e-2; in
         # bf16 also each |err| against 2 ulps of |want| plus a row floor)
         # over the grid, the served shape, the prefill launches and the
@@ -4861,7 +5089,10 @@ def main() -> int:
                                     vlm_served["share"],
                                     ev_trained["encdec"]["share"],
                                     ev_trained["vlm"]["share"],
-                                    ep["share"]),
+                                    ep["share"],
+                                    *(d["share"] for d in dense.values()),
+                                    *(d["share"] for d in
+                                      dense_trained.values())),
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         # the other bodies on the same inputs: mma.sync (the yardstick of
         # the wgmma design) and the fp32 pipes (fp32, other head dims)
@@ -4941,7 +5172,24 @@ def main() -> int:
                     "ms", "library_ms", "bound_ms")},
                 "prefill_share": vlm_served["share"],
                 "training_launches": ev_trained["vlm"]["launches"],
-                "training_share": ev_trained["vlm"]["share"]}})
+                "training_share": ev_trained["vlm"]["share"]},
+        # granite-8b (G 4), qwen3-32b (G 8) and granite-34b (G 48, MQA), dh
+        # 128, causal: each served prefill's launches, ms a launch by CUDA
+        # events and the bound at that shape, the launch shape alone (the
+        # kernel, the plain version, scaled_dot_product_attention timed
+        # only, the bound), the worst share of both limits, and the
+        # training steps' launches and share
+        "dense": {arch: {
+            "heads": dense[arch]["alone"]["shape"][3:5],
+            "prefill_launches": dense[arch]["launches"],
+            "prefill_launch_ms": dense[arch]["flash_launch_ms"],
+            "prefill_bound_ms": dense[arch]["flash_bound_ms"],
+            **{f"alone_{k}": dense[arch]["alone"][k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            "prefill_share": dense[arch]["share"],
+            "training_launches": dense_trained[arch]["launches"],
+            "training_share": dense_trained[arch]["share"]}
+            for arch in dense}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -362,7 +362,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, n_micro: int,
     and what else the family's loss reads (``frames``, ``patch_embeds``,
     ``mrope_pos``);
     with ``n_micro`` > 1 it splits into that many microbatches along B,
-    whose fp32 gradients are summed and divided by ``n_micro``.  The state's
+    whose fp32 gradients are summed in place and divided by ``n_micro``
+    (one summed set and one microbatch's are held at a time).  The state's
     parameters and moments are updated in place; ``metrics`` holds
     ``loss``, ``grad_norm`` and ``lr`` as 0-d tensors on the state's
     device.  ``param_view``, where given, maps the parameter tree inside
@@ -393,7 +394,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, n_micro: int,
                 loss_ = loss_ + l
                 grads = g if grads is None else [
                     a.add_(b) for a, b in zip(grads, g)]
-            grads = [g / n_micro for g in grads]
+                del g       # one microbatch's gradients at a time
+            for g in grads:
+                g.div_(n_micro)
             loss_ = loss_ / n_micro
         params, opt, om = adamw_update(
             opt_cfg, params, tree_unflatten(params, grads), state["opt"],
