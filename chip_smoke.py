@@ -105,7 +105,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    runs once more on the fp32 pipes (and at dh 64 / 128 on ``mma.sync``);
    a control shows that this check passes a sound attention and fails one
    with a key tile dropped, in the materialised attention and in the wgmma
-   body itself, at dh 128 and 112; then at the served shape (B 8, S 2,048, H 16, KV 8, dh
+   body itself, at dh 128 (GQA 16/8 and granite-34b's MQA 48/1) and 112;
+   then at the served shape (B 8, S 2,048, H 16, KV 8, dh
    128, bf16, causal) the wgmma, ``mma.sync`` and fp32-pipe bodies, the
    plain version and ``scaled_dot_product_attention`` (the yardstick, timed
    only) are timed in turns, twice;
@@ -1859,7 +1860,8 @@ def attention_fp32(q, k, v, causal, drop=None):
 def phase_flash_grid(FK, fops, dev):
     """Phase 11a: every CUDA flash body that takes the inputs against the
     plain version over {MHA 8/8, GQA 16/8, MQA 16/1, 64/8 (qwen3-32b, G 8),
-    48/1 (granite-34b, G 48: 96 live rows of the wgmma body's 128)} x
+    48/1 (granite-34b, G 48: the wgmma body's CTAs take 16 heads x 8
+    positions, 3 chunks side by side)} x
     {causal, non-causal} x {fp32, bf16} x dh {64, 128}, B 2, S in {128,
     250, 1,024, 2,048} (non-causal only where S is a block multiple), plus
     non-causal Sq 128 over Sk 1,024; and bf16 at dh 112 over the same
@@ -1914,7 +1916,8 @@ def phase_flash_grid(FK, fops, dev):
 def phase_flash_control(FK, dev):
     """Phase 11b: the bf16 check must pass a sound attention and fail one
     that leaves a key tile out.  At S 2,048 (B 2, causal and not; GQA 16/8
-    at dh 128, then zamba2's 32/32 at dh 112), against the plain version
+    at dh 128, zamba2's 32/32 at dh 112, then granite-34b's MQA 48/1 at dh
+    128, 3 chunks of 16 heads), against the plain version
     (512-key tiles): the plain version on 64-key tiles (at dh 128), the
     materialised fp32 attention (p rounded against each row's final max)
     and the wgmma body must pass; the materialised attention with keys
@@ -1926,7 +1929,7 @@ def phase_flash_control(FK, dev):
                           * 0.5).to(torch.bfloat16)
     S, drop, tile = 2048, (1024, 1088), 8
     out = []
-    for H, KV, dh in ((16, 8, 128), (32, 32, 112)):
+    for H, KV, dh in ((16, 8, 128), (32, 32, 112), (48, 1, 128)):
         q, k, v = rnd(2, S, H, dh), rnd(2, S, KV, dh), rnd(2, S, KV, dh)
         for causal in (True, False):
             want = FK.flash_attention_plain(q, k, v, causal=causal)
@@ -1940,7 +1943,7 @@ def phase_flash_control(FK, dev):
             body_fault = flash_check(FK.flash_attention_cuda(
                 q, k, v, causal=causal, body="wgmma", drop_key_tile=tile),
                 want)
-            where = f"dh {dh}, causal {causal}"
+            where = f"H {H} KV {KV} dh {dh}, causal {causal}"
             if not max(sound[1], body[1], tiled[1] if tiled else 0) <= 1:
                 raise AssertionError(f"the bf16 check fails a sound "
                                      f"attention ({where}): 64-key tiles "

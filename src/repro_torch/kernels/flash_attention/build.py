@@ -17,7 +17,7 @@ from repro_torch.kernels.build import Library
 def _declare(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = ([P] * 4 + [I] * 8
-                                           + [ctypes.c_float, I, I, P])
+                                           + [ctypes.c_float, I, I, I, P])
     lib.flash_attention_launch.restype = I
     lib.flash_attention_max_group.argtypes = [I, I]
     lib.flash_attention_max_group.restype = I

@@ -15,7 +15,9 @@
 //
 // Layout: q [B, Sq, H, dh], k and v [B, Sk, KV, dh], o like q, all
 // contiguous, float or bf16.  Any Sq and Sk (keys past Sk weigh nothing),
-// 1 <= dh <= 256, G up to the rows of one tile.
+// 1 <= dh <= 256, G up to 128 (the wgmma body's rows: it takes a KV head's
+// G heads in chunks of gh, gh * (128 / gh) rows a CTA) and, on the other
+// bodies, up to the rows of one tile.
 //
 // Design.  Three bodies compute it; the caller names one (body code 0, 1
 // or 2, chosen in kernel.py::select_body).  The model path, bf16 at head
@@ -562,7 +564,7 @@ int launch_fma(const void* q, const void* k, const void* v, void* o, int B,
 // flash_wgmma.cu
 int flash_wgmma_launch(const void* q, const void* k, const void* v, void* o,
                        int B, int Sq, int Sk, int H, int KV, int dh,
-                       int causal, float scale, int drop_tile,
+                       int causal, float scale, int drop_tile, int gh,
                        cudaStream_t stream);
 int flash_wgmma_max_group();
 
@@ -573,16 +575,22 @@ extern "C" {
 // 1 mma.sync (bf16 at dh 64 or 128 on 16-byte aligned bases), 2 wgmma
 // (the same, and dh 112); dtype 0 = float, 1 = bf16.  drop_tile >= 0
 // (wgmma only) leaves that 128-key tile out: a planted fault for the
-// checks' control, -1 in every real call.  Returns cudaErrorInvalidValue for a body that cannot
-// take the inputs, else cudaGetLastError() after the launch (0 =
-// launched); faults during the run surface at the next sync.
+// checks' control, -1 in every real call.  gh (wgmma only; kernel.py::
+// wgmma_packing): query heads a CTA, a divisor of G up to 128; other
+// bodies take 0.  Returns cudaErrorInvalidValue for a body that cannot
+// take the inputs or a gh it refuses, else cudaGetLastError() after the
+// launch (0 = launched); faults during the run surface at the next sync.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int Sq, int Sk, int H, int KV,
                            int dh, int dtype, int causal, float scale,
-                           int body, int drop_tile, void* stream) {
+                           int body, int drop_tile, int gh, void* stream) {
   int err = check_args(B, Sq, Sk, H, KV, dh);
   if (err != cudaSuccess) return err;
-  if (body < BODY_FP32_PIPES || body > BODY_WGMMA ||
+  const int G = H / KV;
+  const bool packed = body == BODY_WGMMA
+                          ? gh >= 1 && gh <= 128 && G % gh == 0
+                          : gh == 0;
+  if (body < BODY_FP32_PIPES || body > BODY_WGMMA || !packed ||
       (drop_tile >= 0 && body != BODY_WGMMA) ||
       (body != BODY_FP32_PIPES &&
        !tensor_core_inputs(q, k, v, o, dh, dtype, body)))
@@ -591,7 +599,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   if (body == BODY_WGMMA)
     return flash_wgmma_launch(q, k, v, o, B, Sq, Sk, H, KV, dh, causal,
-                              scale, drop_tile, st);
+                              scale, drop_tile, gh, st);
   if (body == BODY_MMA_SYNC)
     return dh == 64 ? launch_mma<64>(q, k, v, o, B, Sq, Sk, H, KV, causal,
                                      scale, st)

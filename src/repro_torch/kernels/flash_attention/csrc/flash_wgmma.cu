@@ -19,15 +19,22 @@
 // - CTA: three warpgroups.  Warpgroup 2 is the producer: one thread issues
 //   TMA loads and `setmaxnreg` lowers its registers to 24.  Warpgroups 0
 //   and 1 are consumers with 240 registers, each owning 64 rows of a
-//   128-row Q tile.  A row is (position, head): BQ = 128 / G positions x
-//   the G query heads of one KV head (G * BQ rows live).
+//   128-row Q tile.  A row is (position, head): BQ = 128 / GH positions x
+//   GH query heads of one KV head, GH = gcd(G, 128) (kernel.py::
+//   wgmma_packing), so all 128 rows are live at any G.  A KV head's G
+//   heads take G / GH chunks, side by side on the grid's x axis (G 48: GH
+//   16, BQ 8, 3 chunks; where G divides 128, GH = G and one chunk).
+//   The chunks of one position block read the same K and V tiles, each
+//   its own copy from L2: sharing them over a cluster by TMA multicast
+//   (variants.py's "multicast") measured slower, since clusters of 3 such
+//   CTAs fill only 117 of the 132 SMs.
 // - TMA: 4-D tensor maps over q, o [B, Sq, H, dh] and k, v [B, Sk, KV, dh]
 //   with 128-byte swizzle, so a box is 64 head-dim elements wide and dh
 //   128 loads as two boxes ("halves").  dh 112 loads as two halves too:
 //   the second box's columns 112-127 lie past the map's dims[0], so TMA
 //   fills them with zeros (and still counts them in the barrier's bytes),
-//   and the epilogue's store clips them.  The Q box (64, G, BQ, 1) lands rows
-//   in (position, head) order, the K-major layout wgmma reads; per-batch
+//   and the epilogue's store clips them.  The Q box (64, GH, BQ, 1) lands
+//   rows in (position, head) order, the K-major layout wgmma reads; per-batch
 //   coordinates zero-fill past Sq / Sk.  K and V tiles of 128 keys go
 //   through two rings of STAGES stages (a K tile loads while the V tile
 //   before it is still read), each stage with a `full` mbarrier (TMA
@@ -450,8 +457,8 @@ __global__ void __launch_bounds__(NTH, 1)
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        const __grid_constant__ CUtensorMap to, int Sq, int Sk,
-                       int KV, int G, int BQ, int causal, float scale_log2,
-                       int drop_tile) {
+                       int KV, int G, int GH, int BQ, int NCH, int causal,
+                       float scale_log2, int drop_tile) {
   using C = WCfg<DH>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -468,8 +475,11 @@ __global__ void __launch_bounds__(NTH, 1)
   const uint32_t empty_k = full_v + 8 * C::STAGES;
   const uint32_t empty_v = empty_k + 8 * C::STAGES;
 
-  const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest causal tiles first
+  // x: position block (heaviest causal blocks first) x chunk of GH heads
+  const int qt = gridDim.x / NCH - 1 - blockIdx.x / NCH;
+  const int chunk = blockIdx.x % NCH;
   const int bh = blockIdx.y, b = bh / KV, kvh = bh % KV;
+  const int h0 = kvh * G + chunk * GH;          // the chunk's first q head
   const int q0 = qt * BQ;
   const int q_last = min(q0 + BQ, Sq) - 1;
   const int k_end = causal ? min(Sk, q_last + 1) : Sk;
@@ -491,10 +501,10 @@ __global__ void __launch_bounds__(NTH, 1)
     // producer: one thread keeps both rings full, K of a tile ahead of its V
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 2 * WG) {
-      mbar_expect_tx(q_full, C::HALVES * BOX * 2 * G * BQ);
+      mbar_expect_tx(q_full, C::HALVES * BOX * 2 * GH * BQ);
 #pragma unroll
       for (int h = 0; h < C::HALVES; ++h)
-        tma_load(sq + h * C::Q_HALF, &tq, q_full, h * BOX, kvh * G, q0, b);
+        tma_load(sq + h * C::Q_HALF, &tq, q_full, h * BOX, h0, q0, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % C::STAGES;
         const uint32_t ph = ((t / C::STAGES) & 1) ^ 1;
@@ -529,8 +539,8 @@ __global__ void __launch_bounds__(NTH, 1)
     c.empty_v = empty_v;
     c.Sk = Sk;
     c.causal = causal;
-    c.qpos0 = q0 + r0 / G;
-    c.qpos1 = q0 + (r0 + 8) / G;
+    c.qpos0 = q0 + r0 / GH;
+    c.qpos1 = q0 + (r0 + 8) / GH;
     c.t4 = lane % 4;
     c.drop_tile = drop_tile;
     c.cw = cw;
@@ -566,7 +576,7 @@ __global__ void __launch_bounds__(NTH, 1)
     if (threadIdx.x == 0) {
 #pragma unroll
       for (int h = 0; h < C::HALVES; ++h)
-        tma_store(&to, sq + h * C::Q_HALF, h * BOX, kvh * G, q0, b);
+        tma_store(&to, sq + h * C::Q_HALF, h * BOX, h0, q0, b);
       asm volatile("cp.async.bulk.commit_group;" ::: "memory");
       asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
     }
@@ -622,11 +632,15 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B,
 template <int DH>
 int launch_dh(const void* q, const void* k, const void* v, void* o, int B,
               int Sq, int Sk, int H, int KV, int causal, float scale,
-              int drop_tile, cudaStream_t stream) {
+              int drop_tile, int gh, cudaStream_t stream) {
   using C = WCfg<DH>;
   const int G = H / KV;
-  if (G > ROWS || (long long)B * KV > 65535) return cudaErrorInvalidValue;
-  const int BQ = ROWS / G;
+  // GH heads x BQ positions a CTA, G / GH chunks side by side
+  const int GH = gh;
+  if (G > ROWS || GH < 1 || GH > ROWS || G % GH != 0 ||
+      (long long)B * KV > 65535)
+    return cudaErrorInvalidValue;
+  const int BQ = ROWS / GH, NCH = G / GH;
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   // with no keys nothing reads k or v: q stands in as a valid base
@@ -634,39 +648,42 @@ int launch_dh(const void* q, const void* k, const void* v, void* o, int B,
   const void* kb = Sk > 0 ? k : q;
   const void* vb = Sk > 0 ? v : q;
   CUtensorMap tq, tk, tv, to;
-  if (!make_map(enc, &tq, q, B, Sq, H, DH, G, BQ) ||
+  if (!make_map(enc, &tq, q, B, Sq, H, DH, GH, BQ) ||
       !make_map(enc, &tk, kb, B, Skm, KV, DH, 1, BK) ||
       !make_map(enc, &tv, vb, B, Skm, KV, DH, 1, BK) ||
-      !make_map(enc, &to, o, B, Sq, H, DH, G, BQ))
+      !make_map(enc, &to, o, B, Sq, H, DH, GH, BQ))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flash_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, B * KV);
+  dim3 grid((Sq + BQ - 1) / BQ * NCH, B * KV);
   flash_wgmma_kernel<DH><<<grid, NTH, C::SMEM, stream>>>(
-      tq, tk, tv, to, Sq, Sk, KV, G, BQ, causal, scale * LOG2E, drop_tile);
+      tq, tk, tv, to, Sq, Sk, KV, G, GH, BQ, NCH, causal, scale * LOG2E,
+      drop_tile);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Called by flash_attention_launch (flash_attention.cu) for bf16 at dh 64,
-// 112 or 128 on 16-byte aligned bases: one launch on `stream`; drop_tile >= 0
-// leaves that key tile out (a planted fault for the checks' control).
+// 112 or 128 on 16-byte aligned bases: one launch on `stream`, gh query
+// heads a CTA (a divisor of G up to 128; kernel.py::wgmma_packing);
+// drop_tile >= 0 leaves that key tile out (a planted fault for the checks'
+// control).
 int flash_wgmma_launch(const void* q, const void* k, const void* v, void* o,
                        int B, int Sq, int Sk, int H, int KV, int dh,
-                       int causal, float scale, int drop_tile,
+                       int causal, float scale, int drop_tile, int gh,
                        cudaStream_t stream) {
   if (dh == 64)
     return launch_dh<64>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale,
-                         drop_tile, stream);
+                         drop_tile, gh, stream);
   if (dh == 112)
     return launch_dh<112>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale,
-                          drop_tile, stream);
+                          drop_tile, gh, stream);
   if (dh == 128)
     return launch_dh<128>(q, k, v, o, B, Sq, Sk, H, KV, causal, scale,
-                          drop_tile, stream);
+                          drop_tile, gh, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -18,6 +18,7 @@ launch, and never falls back), CPU tensors run
 
 - ``"wgmma"`` (``csrc/flash_wgmma.cu``): TMA-fed, warp-specialised wgmma;
   bf16 at dh 64, 112 and 128 on 16-byte aligned bases, the model path;
+  :func:`wgmma_packing` lays the query heads over its CTAs;
 - ``"mma_sync"`` (``csrc/flash_attention.cu``, ``flash_mma_kernel``): bf16
   at dh 64 and 128 on aligned bases on ``mma.sync``, kept as the yardstick
   the wgmma body is timed against; only an explicit ``body="mma_sync"``
@@ -37,6 +38,7 @@ tiles, while the CUDA bodies pick their own.  :data:`LAUNCHES` counts kernel lau
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -78,6 +80,33 @@ def select_body(dtype, dh: int, aligned: bool, body=None) -> str:
                          f"aligned bases, got {dtype} at dh {dh}"
                          f"{'' if aligned else ', unaligned'}")
     return body
+
+
+# rows (position, head) of a wgmma-body CTA
+WGMMA_ROWS = 128
+
+
+class WgmmaPacking(NamedTuple):
+    heads: int        # query heads of one KV head a CTA (GH)
+    positions: int    # positions a CTA (BQ): heads x positions <= 128 rows
+    chunks: int       # CTAs side by side for one position block (G // GH)
+
+
+def wgmma_packing(G: int, heads=None) -> WgmmaPacking:
+    """How the wgmma body lays a KV head's ``G`` query heads over its
+    128-row CTAs: ``heads`` of them x ``128 // heads`` positions a CTA, the
+    ``G // heads`` chunks side by side for one block of positions.  By
+    default ``heads = gcd(G, 128)``, so all 128 rows are live (G 48: 16
+    heads x 8 positions, 3 chunks; G 7: 1 x 128, 7 chunks; a G that divides
+    128: all G heads, one chunk).  ``heads`` names another count: it must
+    divide G and be at most 128, else ``ValueError`` (the C entry refuses
+    it too)."""
+    if heads is None:
+        heads = math.gcd(G, WGMMA_ROWS)
+    if not 1 <= heads <= WGMMA_ROWS or G % heads:
+        raise ValueError(f"the wgmma body takes a divisor of G {G} up to "
+                         f"{WGMMA_ROWS} as its heads a CTA, got {heads}")
+    return WgmmaPacking(heads, WGMMA_ROWS // heads, G // heads)
 
 
 def _check(q, k, v, block_q: int, block_k: int, causal: bool):
@@ -183,6 +212,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     if H // KV > max_group:
         raise ValueError(f"the {body} body takes at most {max_group} query "
                          f"heads per KV head at dh {dh}, got {H // KV}")
+    heads = wgmma_packing(H // KV).heads if body == "wgmma" else 0
     if o.numel() == 0:
         return o
     with torch.cuda.device(q.device):
@@ -191,7 +221,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq,
             Sk, H, KV, dh, dtypes[q.dtype], int(causal),
             1.0 / math.sqrt(dh), BODIES[body],
-            -1 if drop_key_tile is None else int(drop_key_tile), stream)
+            -1 if drop_key_tile is None else int(drop_key_tile), heads,
+            stream)
     if rc != 0:
         raise RuntimeError(f"flash-attention launch ({body}) failed: "
                            f"{lib.flash_attention_error_string(rc).decode()}"

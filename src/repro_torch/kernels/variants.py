@@ -93,13 +93,15 @@ def build_variants(lib: kbuild.Library, source: str, table: dict) -> dict:
     return libs
 
 
-def time_in_turns(libs: dict, build_module, runs: dict, reps: int) -> dict:
+def time_in_turns(libs: dict, build_module, runs: dict, reps: int,
+                  turns: int = 3) -> dict:
     """Time every ``runs`` entry (name -> callable) under each variant in
-    three turns (in order, reversed, in order) -> ``{variant: {run:
-    [ms per turn]}}``."""
+    ``turns`` turns (in order, reversed, in order, ...) -> ``{variant:
+    {run: [ms per turn]}}``."""
     out = {name: {run: [] for run in runs} for name in libs}
     order = list(libs)
-    for turn in (order, order[::-1], order):
+    for turn in (order if i % 2 == 0 else order[::-1]
+                 for i in range(turns)):
         for name in turn:
             with loaded_from(build_module, libs[name]):
                 for run, fn in runs.items():

@@ -10,6 +10,8 @@ inputs from a seeded numpy RNG.  Tolerances are those of
 in bf16 (one or two bf16 ulps of outputs below 1).  The CUDA kernel itself
 is held against the plain version on the card in
 ``tests/test_torch_flash_gpu.py``."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from repro.kernels.flash_attention import flash_attention as j_flash  # noqa: E4
 from repro.kernels.flash_attention import ref_attention_gqa as j_ref  # noqa: E402
 from repro.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_gqa as j_gqa)
+from repro_torch.configs import CONFIGS  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as t_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as t_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as t_ref  # noqa: E402
@@ -47,8 +50,10 @@ def _np(x):
     return np.asarray(x.astype(jnp.float32))
 
 
-@pytest.mark.parametrize("H,KV", [(8, 8), (8, 2), (16, 1)],
-                         ids=["mha", "gqa", "mqa"])
+@pytest.mark.parametrize("H,KV", [(8, 8), (8, 2), (16, 1), (48, 1), (24, 1),
+                                  (96, 2), (28, 4)],
+                         ids=["mha", "gqa", "mqa", "mqa-G48", "mqa-G24",
+                              "G48-KV2", "G7"])
 @pytest.mark.parametrize("S", [128, 256, 250])
 def test_flash_matches_jax_fp32(H, KV, S):
     arrs = _qkv(2, S, S, H, KV, 64)
@@ -229,3 +234,66 @@ def test_select_body_refuses(dtype, dh, aligned, body, match):
     to another body."""
     with pytest.raises(ValueError, match=match):
         t_kernel.select_body(getattr(torch, dtype), dh, aligned, body)
+
+
+# (H, KV) of the ten configs, of chip_smoke.py's flash grid and of
+# tests/test_torch_flash_gpu.py's wgmma grid
+PACKED_HEADS = sorted({(c.n_heads, c.n_kv_heads) for c in CONFIGS.values()}
+                      | {(8, 8), (16, 8), (16, 1), (32, 8), (64, 8), (48, 1),
+                         (96, 2), (24, 1), (12, 1), (28, 4)})
+
+
+def _ctas(Sq, positions, chunks):
+    return -(-Sq // positions) * chunks
+
+
+def _steps(Sq, positions, chunks):
+    """(CTA, 128-key tile) steps of one (batch, KV head), causal, Sk = Sq:
+    a CTA walks the key tiles up to its last position."""
+    return chunks * sum(-(-min(q0 + positions, Sq) // 128)
+                        for q0 in range(0, Sq, positions))
+
+
+@pytest.mark.parametrize("H,KV", PACKED_HEADS,
+                         ids=[f"{h}-{kv}" for h, kv in PACKED_HEADS])
+def test_wgmma_packing_rule(H, KV):
+    """``gcd(G, 128)`` heads x ``128 / gcd`` positions a CTA: all 128 rows
+    live, the chunks tile G, and at every block-padded length the grid
+    holds no more CTAs than the old ``128 // G`` positions x all G heads
+    did."""
+    G = H // KV
+    pk = t_kernel.wgmma_packing(G)
+    assert pk.heads == math.gcd(G, 128)
+    assert pk.heads * pk.positions == 128
+    assert pk.heads * pk.chunks == G
+    if 128 % G == 0:
+        assert pk == (G, 128 // G, 1)
+    for Sq in (128, 256, 512, 1024, 2048, 32768):
+        assert (_ctas(Sq, pk.positions, pk.chunks)
+                <= _ctas(Sq, 128 // G, 1))
+
+
+def test_wgmma_packing_granite34b_counts():
+    """granite-34b's G 48 at S 2,048: 16 heads x 8 positions, 3 chunks;
+    768 CTAs a batch row (1,024 before) and 52,224 steps at B 8 (69,632
+    before), the issued products 94% useful."""
+    pk = t_kernel.wgmma_packing(48)
+    assert pk == (16, 8, 3)
+    assert _ctas(2048, pk.positions, pk.chunks) == 768
+    assert _ctas(2048, 2, 1) == 1024
+    assert 8 * _steps(2048, pk.positions, pk.chunks) == 52224
+    assert 8 * _steps(2048, 2, 1) == 69632
+    issued = 8 * _steps(2048, 8, 3) * 4 * 128 * 128 * 128
+    useful = 4 * 128 * 8 * 48 * 2048 * 2049 / 2
+    assert 0.94 <= useful / issued < 0.95
+
+
+@pytest.mark.parametrize("G,heads", [(48, 32), (48, 0), (48, 256), (7, 2),
+                                     (96, 64)],
+                         ids=["not-a-divisor", "zero", "over-128", "G7-by-2",
+                              "G96-by-64"])
+def test_wgmma_packing_refuses(G, heads):
+    """Heads a CTA that do not divide G or exceed 128 raise, as the C entry
+    refuses them (``cudaErrorInvalidValue``)."""
+    with pytest.raises(ValueError, match="divisor of G"):
+        t_kernel.wgmma_packing(G, heads)

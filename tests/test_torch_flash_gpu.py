@@ -11,6 +11,8 @@ plus 1/16 of the mean |output| of their row (one position of one head), the
 check ``chip_smoke.py`` applies: the absolute 2e-2 alone is about the size
 of the outputs at long sequences.
 """
+import os
+
 import numpy as np
 import pytest
 
@@ -19,6 +21,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels.flash_attention import kernel as t_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as t_ops  # noqa: E402
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 BF16_ULPS, BF16_ROW_FLOOR = 2, 2 ** -4
 
@@ -51,6 +54,13 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def chip_smoke(monkeypatch):
+    monkeypatch.syspath_prepend(ROOT)
+    import chip_smoke
+    return chip_smoke
 
 
 @pytest.mark.gpu
@@ -89,9 +99,15 @@ def test_cuda_flash_kernel_matches_plain(cuda_device, monkeypatch):
                         _assert_close(got[:, :S], want[:, :S])
 
 
-# (H, KV): G 1, 2, 4 (phi3.5-moe's 32/8), 8 (qwen3-32b's 64/8) and 48
-# (granite-34b's 48/1: 96 live rows of the wgmma body's 128)
-WGMMA_HEADS = [(8, 8), (16, 8), (32, 8), (64, 8), (48, 1)]
+# (H, KV): G 1, 2, 4 (phi3.5-moe's 32/8), 8 (qwen3-32b's 64/8), 48
+# (granite-34b's 48/1: 3 chunks of 16 heads x 8 positions), 48 on two KV
+# heads (the chunk's head coordinate crosses a KV head), 24 and 12 (3
+# chunks of 8 and of 4 heads) and 7 (qwen2-vl's 28/4: 7 chunks of one head
+# x 128 positions)
+WGMMA_HEADS = [(8, 8), (16, 8), (32, 8), (64, 8), (48, 1), (96, 2), (24, 1),
+               (12, 1), (28, 4)]
+WGMMA_HEAD_IDS = ["G1", "G2", "G4", "G8", "G48", "G48-KV2", "G24", "G12",
+                  "G7"]
 # (Sq, Sk, causal): a ragged q tile; few queries over many keys, both ways;
 # a full square
 WGMMA_SHAPES = [(250, 250, True), (128, 1024, False), (128, 1024, True),
@@ -100,8 +116,7 @@ WGMMA_SHAPES = [(250, 250, True), (128, 1024, False), (128, 1024, True),
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dh", [64, 112, 128])
-@pytest.mark.parametrize("H,KV", WGMMA_HEADS,
-                         ids=[f"G{h // kv}" for h, kv in WGMMA_HEADS])
+@pytest.mark.parametrize("H,KV", WGMMA_HEADS, ids=WGMMA_HEAD_IDS)
 @pytest.mark.parametrize("Sq,Sk,causal", WGMMA_SHAPES,
                          ids=["ragged", "keys", "keys-causal", "square"])
 def test_wgmma_body_matches_plain(cuda_device, dh, H, KV, Sq, Sk, causal):
@@ -167,7 +182,7 @@ def test_wgmma_dh112_store_leaves_neighbours(cuda_device):
     assert o.is_contiguous()
     rc = build.load().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, Sq, Sq, H,
-        H, dh, 1, 1, 1.0 / dh ** 0.5, t_kernel.BODIES["wgmma"], -1,
+        H, dh, 1, 1, 1.0 / dh ** 0.5, t_kernel.BODIES["wgmma"], -1, 1,
         torch.cuda.current_stream().cuda_stream)
     assert rc == 0
     torch.cuda.synchronize()
@@ -202,6 +217,48 @@ def test_wgmma_dropped_tile_fails_the_check(cuda_device, H, KV, dh):
     with pytest.raises(AssertionError):
         _assert_close(t_kernel.flash_attention_cuda(
             q, k, v, causal=True, drop_key_tile=4), want)
+
+
+@pytest.mark.gpu
+def test_wgmma_mqa_dropped_tile_fails_flash_check(cuda_device, chip_smoke):
+    """granite-34b's MQA (48 query heads on one KV head, dh 128) at S
+    2,048: the sound call passes ``chip_smoke.flash_check`` and the call
+    with its 128-key tile 8 left out fails it; each counts one launch,
+    under "wgmma"."""
+    q, k, v = _qkv(1, 2048, 48, 1, 128, "bfloat16", 48, cuda_device)
+    want = t_kernel.flash_attention_plain(q, k, v, causal=True)
+    shares = []
+    for tile in (None, 8):
+        paths = dict(t_kernel.PATH_LAUNCHES)
+        got = t_kernel.flash_attention_cuda(q, k, v, causal=True,
+                                            drop_key_tile=tile)
+        torch.cuda.synchronize()
+        assert {key: t_kernel.PATH_LAUNCHES[key] - n
+                for key, n in paths.items()} == {
+            "wgmma": 1, "mma_sync": 0, "fp32_pipes": 0}
+        shares.append(chip_smoke.flash_check(got, want)[1])
+    assert shares[0] <= 1 < shares[1], shares
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gh", [32, 0, 256, -16],
+                         ids=["not-a-divisor", "zero", "over-128",
+                              "negative"])
+def test_wgmma_entry_refuses_a_bad_packing(cuda_device, gh):
+    """The C entry refuses, at G 48, heads a CTA that do not divide G or
+    exceed 128 (cudaErrorInvalidValue, 1) and launches nothing: the output
+    keeps its sentinel."""
+    from repro_torch.kernels.flash_attention import build
+
+    q, k, v = _qkv(1, 256, 48, 1, 128, "bfloat16", 256, cuda_device)
+    o = torch.full_like(q, 3.0)
+    rc = build.load().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, 256, 256,
+        48, 1, 128, 1, 1, 128 ** -0.5, t_kernel.BODIES["wgmma"], -1, gh,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 1
+    assert bool((o == 3.0).all())
 
 
 @pytest.mark.gpu
