@@ -44,6 +44,7 @@ from repro_torch.core.wavefront import (BT_GAP_EXT, BT_GAP_OPEN,
                                         BT_M_FROM_D, BT_M_FROM_I,
                                         BT_M_FROM_X, NEG,
                                         TRACE_CELLS_PER_WORD, _VALID_THRESH)
+from repro_torch.obs import trace as obs_trace
 
 OP_M, OP_X, OP_I, OP_D = 0, 1, 2, 3
 
@@ -299,13 +300,21 @@ def _lcp(p: np.ndarray, t: np.ndarray, v: int, h: int) -> int:
     return n if neq.size == 0 else int(neq[0])
 
 
-def _replay(rev, p, t, plen: int, tlen: int,
+# An edit of a chain is one int, ``op << 1 | extend_after``: whether forward
+# replay re-enters an M cell after it (and so must re-extend matches there).
+# Ints, not tuples, so a wave's chains held between its walk and its replay
+# add no objects for the cyclic garbage collector to scan.
+_X_EXT = OP_X << 1 | 1
+
+
+def _replay(chain, p, t, plen: int, tlen: int,
             pair: Optional[int] = None, extend_start: bool = True) -> np.ndarray:
     """Phase B: replay a back-to-front edit chain forward, re-deriving each
     match run by maximal extension (exactly the forward pass's extend
-    step).  ``rev`` holds ``(op, extend_after)`` pairs.  ``extend_start``
-    is False when the chain terminated on a begin-state gap seed (the
-    alignment opens mid-gap: no leading match run to re-derive)."""
+    step).  ``chain`` holds ``op << 1 | extend_after`` ints.
+    ``extend_start`` is False when the chain terminated on a begin-state
+    gap seed (the alignment opens mid-gap: no leading match run to
+    re-derive)."""
     ops: list[int] = []
     v = h = 0
     if extend_start:
@@ -313,7 +322,8 @@ def _replay(rev, p, t, plen: int, tlen: int,
         ops.extend([OP_M] * r)
         v += r
         h += r
-    for op, extend_after in reversed(rev):
+    for code in reversed(chain):
+        op = code >> 1
         if op == OP_X:
             if v >= plen or h >= tlen:
                 raise TracebackError("mismatch op past sequence end",
@@ -331,7 +341,7 @@ def _replay(rev, p, t, plen: int, tlen: int,
                                      pair=pair, h=h)
             v += 1
         ops.append(op)
-        if extend_after:
+        if code & 1:
             r = _lcp(p, t, v, h)
             ops.extend([OP_M] * r)
             v += r
@@ -341,6 +351,120 @@ def _replay(rev, p, t, plen: int, tlen: int,
             f"replay consumed ({v}, {h}) of ({plen}, {tlen})",
             pair=pair, h=h)
     return np.asarray(ops, np.int8)
+
+
+def _walk_packed(chain: list, m_bt, i_bt, d_bt, x: int, o: int, e: int,
+                 score: int, plen: int, tlen: int, pair: Optional[int] = None,
+                 begin_state: str = "M", end_state: str = "M") -> bool:
+    """Phase A (gap-affine): walk provenance codes from the end cell to the
+    origin, appending the *edit* chain (no match runs) back-to-front to
+    ``chain`` -> ``extend_start``, False when a begin-state gap chain ended
+    on its (codeless) seed cell."""
+    kc = m_bt.shape[-1] // 2
+    s, k, state = int(score), tlen - plen, end_state
+    close = 0                                 # next gap op folds into M
+    extend_start = True
+    guard = 4 * (plen + tlen) + 4 * (s + 1) + 8
+    while guard > 0:
+        guard -= 1
+        if state == "M":
+            if s == 0:
+                if k != 0:
+                    raise TracebackError("origin cell off diagonal 0",
+                                         pair=pair, s=s, k=k)
+                break
+            c = _code_at(m_bt, s, k, kc)
+            if c == BT_M_FROM_X:
+                chain.append(_X_EXT)
+                s -= x
+            elif c == BT_M_FROM_I:
+                state, close = "I", 1
+            elif c == BT_M_FROM_D:
+                state, close = "D", 1
+            else:
+                raise TracebackError("invalid M provenance code",
+                                     pair=pair, s=s, k=k)
+        elif state == "I":
+            if s == 0:
+                # begin-state gap seed: inherited open gap, no op, no
+                # leading match run before it
+                if begin_state != "I" or k != 0:
+                    raise TracebackError("I chain hit s=0 off the gap seed",
+                                         pair=pair, s=s, k=k)
+                extend_start = False
+                break
+            c = _code_at(i_bt, s, k, kc)
+            if c == 0:
+                raise TracebackError("invalid I provenance code",
+                                     pair=pair, s=s, k=k)
+            chain.append(OP_I << 1 | close)
+            close = 0
+            k -= 1
+            if c == BT_GAP_EXT:
+                s -= e
+            else:
+                s -= o + e
+                state = "M"
+        else:  # "D"
+            if s == 0:
+                if begin_state != "D" or k != 0:
+                    raise TracebackError("D chain hit s=0 off the gap seed",
+                                         pair=pair, s=s, k=k)
+                extend_start = False
+                break
+            c = _code_at(d_bt, s, k, kc)
+            if c == 0:
+                raise TracebackError("invalid D provenance code",
+                                     pair=pair, s=s, k=k)
+            chain.append(OP_D << 1 | close)
+            close = 0
+            k += 1
+            if c == BT_GAP_EXT:
+                s -= e
+            else:
+                s -= o + e
+                state = "M"
+    else:
+        raise TracebackError("packed traceback did not terminate",
+                             pair=pair, s=s, k=k)
+    return extend_start
+
+
+def _walk_packed_linear(chain: list, m_bt, x: int, e: int, score: int,
+                        plen: int, tlen: int,
+                        pair: Optional[int] = None) -> bool:
+    """Phase A (one matrix), appending to ``chain`` -> True: every op
+    returns to an M cell, so forward replay re-extends matches after each
+    one."""
+    kc = m_bt.shape[-1] // 2
+    s, k = int(score), tlen - plen
+    guard = 4 * (plen + tlen) + 4 * (s + 1) + 8
+    while guard > 0:
+        guard -= 1
+        if s == 0:
+            if k != 0:
+                raise TracebackError("origin cell off diagonal 0",
+                                     pair=pair, s=s, k=k)
+            break
+        c = _code_at(m_bt, s, k, kc)
+        if c == BT_M_FROM_X:
+            chain.append(_X_EXT)
+            s -= x
+        elif c == BT_M_FROM_I:
+            chain.append(OP_I << 1 | 1)
+            s -= e
+            k -= 1
+        elif c == BT_M_FROM_D:
+            chain.append(OP_D << 1 | 1)
+            s -= e
+            k += 1
+        else:
+            raise TracebackError("invalid M provenance code",
+                                 pair=pair, s=s, k=k)
+    else:
+        raise TracebackError("packed traceback did not terminate",
+                             pair=pair, s=s, k=k)
+    return True
 
 
 def traceback_packed_one(m_bt, i_bt, d_bt, pen, score: int,
@@ -359,89 +483,18 @@ def traceback_packed_one(m_bt, i_bt, d_bt, pen, score: int,
     (BiWFA sub-alignments): the walk starts in ``end_state``; a
     begin-state gap chain terminates on the (codeless) gap seed cell at
     ``s = 0``, and replay then skips the leading match extension (the
-    alignment opens mid-gap).
+    alignment opens mid-gap).  The walk (:func:`_walk_packed`) and the
+    replay (:func:`_replay`) composed.
     """
     if score < 0:
         return np.empty((0,), np.int8)
     pen = scoring.as_model(pen)
-    x, o, e = pen.x, pen.o, pen.e
-    kc = m_bt.shape[-1] // 2
-    p = np.asarray(pattern)[:plen]
-    t = np.asarray(text)[:tlen]
-
-    # Phase A: walk provenance codes from the end cell to the origin.
-    # Emits the *edit* chain only (no match runs) back-to-front; each op is
-    # tagged with whether forward replay re-enters an M cell after it (and
-    # so must re-extend matches there).
-    s, k, state = int(score), tlen - plen, end_state
-    rev: list[tuple[int, bool]] = []          # (op, extend_after)
-    close = False                             # next gap op folds into M
-    extend_start = True
-    guard = 4 * (plen + tlen) + 4 * (s + 1) + 8
-    while guard > 0:
-        guard -= 1
-        if state == "M":
-            if s == 0:
-                if k != 0:
-                    raise TracebackError("origin cell off diagonal 0",
-                                         pair=pair, s=s, k=k)
-                break
-            c = _code_at(m_bt, s, k, kc)
-            if c == BT_M_FROM_X:
-                rev.append((OP_X, True))
-                s -= x
-            elif c == BT_M_FROM_I:
-                state, close = "I", True
-            elif c == BT_M_FROM_D:
-                state, close = "D", True
-            else:
-                raise TracebackError("invalid M provenance code",
-                                     pair=pair, s=s, k=k)
-        elif state == "I":
-            if s == 0:
-                # begin-state gap seed: inherited open gap, no op, no
-                # leading match run before it
-                if begin_state != "I" or k != 0:
-                    raise TracebackError("I chain hit s=0 off the gap seed",
-                                         pair=pair, s=s, k=k)
-                extend_start = False
-                break
-            c = _code_at(i_bt, s, k, kc)
-            if c == 0:
-                raise TracebackError("invalid I provenance code",
-                                     pair=pair, s=s, k=k)
-            rev.append((OP_I, close))
-            close = False
-            k -= 1
-            if c == BT_GAP_EXT:
-                s -= e
-            else:
-                s -= o + e
-                state = "M"
-        else:  # "D"
-            if s == 0:
-                if begin_state != "D" or k != 0:
-                    raise TracebackError("D chain hit s=0 off the gap seed",
-                                         pair=pair, s=s, k=k)
-                extend_start = False
-                break
-            c = _code_at(d_bt, s, k, kc)
-            if c == 0:
-                raise TracebackError("invalid D provenance code",
-                                     pair=pair, s=s, k=k)
-            rev.append((OP_D, close))
-            close = False
-            k += 1
-            if c == BT_GAP_EXT:
-                s -= e
-            else:
-                s -= o + e
-                state = "M"
-    else:
-        raise TracebackError("packed traceback did not terminate",
-                             pair=pair, s=s, k=k)
-
-    return _replay(rev, p, t, plen, tlen, pair=pair,
+    chain: list[int] = []
+    extend_start = _walk_packed(chain, m_bt, i_bt, d_bt, pen.x, pen.o,
+                                pen.e, score, plen, tlen, pair=pair,
+                                begin_state=begin_state, end_state=end_state)
+    return _replay(chain, np.asarray(pattern)[:plen],
+                   np.asarray(text)[:tlen], plen, tlen, pair=pair,
                    extend_start=extend_start)
 
 
@@ -457,72 +510,67 @@ def traceback_packed_linear_one(m_bt, pen, score: int, pattern, text,
     if score < 0:
         return np.empty((0,), np.int8)
     model = scoring.as_model(pen)
-    x, e = model.x, model.e
-    kc = m_bt.shape[-1] // 2
-    p = np.asarray(pattern)[:plen]
-    t = np.asarray(text)[:tlen]
-
-    s, k = int(score), tlen - plen
-    rev: list[tuple[int, bool]] = []          # (op, extend_after)
-    guard = 4 * (plen + tlen) + 4 * (s + 1) + 8
-    while guard > 0:
-        guard -= 1
-        if s == 0:
-            if k != 0:
-                raise TracebackError("origin cell off diagonal 0",
-                                     pair=pair, s=s, k=k)
-            break
-        c = _code_at(m_bt, s, k, kc)
-        if c == BT_M_FROM_X:
-            rev.append((OP_X, True))
-            s -= x
-        elif c == BT_M_FROM_I:
-            rev.append((OP_I, True))
-            s -= e
-            k -= 1
-        elif c == BT_M_FROM_D:
-            rev.append((OP_D, True))
-            s -= e
-            k += 1
-        else:
-            raise TracebackError("invalid M provenance code",
-                                 pair=pair, s=s, k=k)
-    else:
-        raise TracebackError("packed traceback did not terminate",
-                             pair=pair, s=s, k=k)
-
-    return _replay(rev, p, t, plen, tlen, pair=pair)
+    chain: list[int] = []
+    _walk_packed_linear(chain, m_bt, model.x, model.e, score, plen, tlen,
+                        pair=pair)
+    return _replay(chain, np.asarray(pattern)[:plen],
+                   np.asarray(text)[:tlen], plen, tlen, pair=pair)
 
 
 def traceback_packed_batch(result, pen, pattern, text, plen, tlen,
                            begin_state: str = "M", end_state: str = "M"):
     """-> list of per-pair op arrays (ragged) from packed provenance,
-    dispatched on the model's recurrence kind."""
+    dispatched on the model's recurrence kind.
+
+    Every pair of the wave is walked first (one ``traceback.walk`` span),
+    its chain appended to one flat list, then every chain is replayed (one
+    ``traceback.replay`` span); both carry ``pairs`` and ``edits``, the
+    chains' total length."""
     model = scoring.as_model(pen)
     m_bt = np.asarray(result.m_bt)
-    scores = np.asarray(result.score)
+    scores = np.asarray(result.score).reshape(-1)
     pattern = np.asarray(pattern)
     text = np.asarray(text)
     plen = np.asarray(plen).reshape(-1)
     tlen = np.asarray(tlen).reshape(-1)
+    n = scores.shape[0]
     if model.kind == "linear":
         if begin_state != "M" or end_state != "M":
             raise ValueError("linear models have no I/D boundary states")
-        return [
-            traceback_packed_linear_one(m_bt[:, b], model, int(scores[b]),
-                                        pattern[b], text[b], int(plen[b]),
-                                        int(tlen[b]), pair=b)
-            for b in range(scores.shape[0])
-        ]
-    i_bt = np.asarray(result.i_bt)
-    d_bt = np.asarray(result.d_bt)
-    return [
-        traceback_packed_one(m_bt[:, b], i_bt[:, b], d_bt[:, b], model,
-                             int(scores[b]), pattern[b], text[b],
-                             int(plen[b]), int(tlen[b]), pair=b,
-                             begin_state=begin_state, end_state=end_state)
-        for b in range(scores.shape[0])
-    ]
+
+        def walk(chain, b):
+            return _walk_packed_linear(chain, m_bt[:, b], model.x, model.e,
+                                       int(scores[b]), int(plen[b]),
+                                       int(tlen[b]), pair=b)
+    else:
+        i_bt = np.asarray(result.i_bt)
+        d_bt = np.asarray(result.d_bt)
+
+        def walk(chain, b):
+            return _walk_packed(chain, m_bt[:, b], i_bt[:, b], d_bt[:, b],
+                                model.x, model.o, model.e, int(scores[b]),
+                                int(plen[b]), int(tlen[b]), pair=b,
+                                begin_state=begin_state, end_state=end_state)
+
+    on = obs_trace.enabled()
+    chains: list[int] = []            # every pair's chain, one after another
+    starts = [0] * (n + 1)            # pair b's chain: chains[starts[b]:...]
+    extend = [None] * n               # its extend_start; None: unresolved
+    with obs_trace.span("traceback.walk", cat="wave") as sp:
+        for b in range(n):
+            if scores[b] >= 0:
+                extend[b] = walk(chains, b)
+            starts[b + 1] = len(chains)
+        if on:
+            sp.set(pairs=n, edits=len(chains))
+    with obs_trace.span("traceback.replay", cat="wave",
+                        args={"pairs": n, "edits": len(chains)}
+                        if on else None):
+        return [np.empty((0,), np.int8) if extend[b] is None else
+                _replay(chains[starts[b]:starts[b + 1]], pattern[b, :plen[b]],
+                        text[b, :tlen[b]], int(plen[b]), int(tlen[b]),
+                        pair=b, extend_start=extend[b])
+                for b in range(n)]
 
 
 def traceback_result(result, pen, *, pattern, text, plen, tlen,

@@ -219,6 +219,12 @@ class EngineStats:
     t_scatter: float = 0.0
     t_kernel: float = 0.0
     t_gather: float = 0.0
+    # each wave's device timeline by CUDA events (host seconds of the same
+    # steps on the CPU): the copy in, the WFA kernels (events around each
+    # launch; else the launch's device work), the copy out
+    t_dev_copy_in: float = 0.0
+    t_dev_kernel: float = 0.0
+    t_dev_copy_out: float = 0.0
     # BiWFA (trace_variant="bidir") telemetry
     n_meet_unmet: int = 0      # meet rows whose fronts never joined
     n_bidir_fallback: int = 0  # segments re-run via packed traceback
@@ -239,6 +245,7 @@ class EngineStats:
         for f in ("n_overflow", "n_recovered", "cache_hits", "cache_misses",
                   "n_traces", "rows_real", "rows_padded", "bytes_in",
                   "bytes_out", "t_scatter", "t_kernel", "t_gather",
+                  "t_dev_copy_in", "t_dev_kernel", "t_dev_copy_out",
                   "n_meet_unmet", "n_bidir_fallback"):
             setattr(self, f, getattr(self, f) + getattr(other, f))
         self.peak_trace_bytes = max(self.peak_trace_bytes,
@@ -540,16 +547,29 @@ class AlignmentEngine:
 
     # -- execution -----------------------------------------------------------
 
-    def _device_put(self, *arrays):
-        """numpy -> tensors on the engine's device: pinned host buffers and
-        ``non_blocking`` copies on a card, zero-copy views on the CPU."""
-        out = []
-        for a in arrays:
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out.append(t)
-        return tuple(out)
+    def _stage(self, *arrays) -> Tuple[Tuple[torch.Tensor, ...],
+                                       Tuple[torch.Tensor, ...]]:
+        """numpy -> (host tensors ready for the copy in, the tensors they
+        are copied to): pinned buffers and empty device tensors on a card,
+        zero-copy views (the same on both sides) on the CPU.  Host work
+        only: nothing is enqueued on the card."""
+        host = tuple(torch.from_numpy(np.ascontiguousarray(a))
+                     for a in arrays)
+        if self.device.type != "cuda":
+            return host, host
+        host = tuple(t.pin_memory() for t in host)
+        return host, tuple(torch.empty(t.shape, dtype=t.dtype,
+                                       device=self.device) for t in host)
+
+    def _enqueue(self, host: Sequence[torch.Tensor],
+                 dev: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+        """The copy in: ``non_blocking`` copies of :meth:`_stage`'s host
+        tensors into its device tensors on the card's current stream
+        (nothing to do on the CPU) -> the device tensors."""
+        if self.device.type == "cuda":
+            for h, d in zip(host, dev):
+                d.copy_(h, non_blocking=True)
+        return tuple(dev)
 
     def _executable_for(self, pshape: tuple, tshape: tuple, s_max: int,
                         k_max: int, output: str = "score",

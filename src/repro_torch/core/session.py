@@ -26,6 +26,19 @@ The counterpart of ``repro.core.session`` on PyTorch:
 The sync ``engine.align()`` is one blocking pass through this class
 (``max_inflight_waves=1`` + per-phase timing: on a card, CUDA events
 around the host-to-device copy, the kernel and the device-to-host copy).
+In both modes each wave's events are read once it has retired, into the
+stats' ``t_dev_copy_in``, ``t_dev_kernel`` and ``t_dev_copy_out``: the
+copy in, the WFA kernels (events each launch records right around its
+kernel, :func:`repro_torch.device.kernel_marks`; a backend that records
+none gets the device interval from the copy in's end to the launch's end)
+and the copy out.
+
+Spans (``repro_torch.obs.trace``): ``wave.scatter`` holds ``scatter.pack``
+(gathering the rows, fitting width and rows), ``scatter.stage`` (the host
+copies into pinned memory, and the device buffers they go to) and
+``scatter.launch`` (the copies enqueued, the launch, the copy out
+enqueued); ``wave.traceback`` holds
+``traceback.walk`` and ``traceback.replay`` (``core.cigar``).
 
 Quickstart::
 
@@ -38,6 +51,7 @@ Quickstart::
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import threading
 import time
@@ -50,8 +64,8 @@ from repro_torch.core import cigar as cigar_mod
 from repro_torch.core.engine import (AlignmentEngine, BucketInfo, EngineResult,
                                      EngineStats, Seq, _fit_width, _pad_rows,
                                      _quantize_rows, _round_up, pack_batch)
+from repro_torch.device import kernel_marks
 from repro_torch.obs import metrics as obs_metrics
-from repro_torch.obs import profile as obs_profile
 from repro_torch.obs import record as obs_record
 from repro_torch.obs import trace as obs_trace
 
@@ -133,16 +147,21 @@ class _Transfer:
 
     A result on other devices than the engine's (a ``shardmap`` wave over
     several cards) is first gathered onto the engine's device.  On a card:
-    an event after the kernel, ``non_blocking`` copies of the score (and
-    trace words) into pinned host tensors, and an event after the copies,
-    all on the engine device's current stream.  A backend that runs on
-    streams of its own orders that stream after them before it returns
+    an event after the kernel (``kernel_done``), pinned host buffers, an
+    event (``copy_start``), ``non_blocking`` copies of the score (and trace
+    words) into the buffers, largest first, and an event after the copies
+    (``copied``), all on the engine device's current stream; the buffers
+    are allocated between the marks, so ``copy_start -> copied`` holds the
+    copies and not the host's allocation.  A backend that runs on streams
+    of its own orders that stream after them before it returns
     (``wavefront.wfa_shards``), so the events cover every shard.  On the
-    CPU the results already are host tensors.
+    CPU the results already are host tensors, and the marks are host clock
+    readings.
     """
 
-    def __init__(self, res, device: torch.device):
+    def __init__(self, res, device: torch.device, mark):
         self.res = res
+        self._cuda = device.type == "cuda"
         # the score and every other tensor field: trace words, meet
         # breakpoints, a kernel's on-device step count
         fields = {}
@@ -152,32 +171,29 @@ class _Transfer:
                 fields[f] = t.to(device)
             elif f == "score":   # whatever it is, it fails at the gather
                 fields[f] = t
-        self.kernel_done = self.copied = None
-        if device.type == "cuda":
-            stream = torch.cuda.current_stream(device)
-            self.kernel_done = torch.cuda.Event(enable_timing=True)
-            self.kernel_done.record(stream)
-            self.host = {}
-            for f, src in fields.items():
-                dst = torch.empty(src.shape, dtype=src.dtype,
-                                  pin_memory=True)
-                dst.copy_(src, non_blocking=True)
-                self.host[f] = dst
-            self.copied = torch.cuda.Event(enable_timing=True)
-            self.copied.record(stream)
+        self.kernel_done = mark()
+        if self._cuda:
+            self.host = {f: torch.empty(src.shape, dtype=src.dtype,
+                                        pin_memory=True)
+                         for f, src in fields.items()}
+            self.copy_start = mark()
+            for f in sorted(fields, key=lambda f: -fields[f].nbytes):
+                self.host[f].copy_(fields[f], non_blocking=True)
         else:
             self.host = fields
+            self.copy_start = mark()
+        self.copied = mark()
 
     def ready(self) -> bool:
-        return self.copied is None or self.copied.query()
+        return not self._cuda or self.copied.query()
 
     def wait_kernel(self) -> None:
-        if self.kernel_done is not None:
+        if self._cuda:
             self.kernel_done.synchronize()
 
     def fetch(self):
         """-> the wave's result with numpy arrays (blocks)."""
-        if self.copied is not None:
+        if self._cuda:
             self.copied.synchronize()
         return self.res._replace(**{f: t.numpy()
                                     for f, t in self.host.items()})
@@ -193,6 +209,9 @@ class _Wave:
     tlc: np.ndarray
     k_max: int
     recovery: bool
+    e0: object = None           # marks around the copy in (_mark)
+    e1: object = None
+    kmarks: Sequence = ()       # events around each kernel (kernel_marks)
     pc: Optional[np.ndarray] = None   # padded codes, kept only for CIGAR
     tc: Optional[np.ndarray] = None
     t_gather: Optional[float] = None  # sync mode: device-to-host seconds
@@ -209,7 +228,8 @@ class AlignmentSession:
     ``_sync_timing`` is the engine-internal blocking mode used by
     ``align()``: each wave blocks per phase so scatter/kernel/gather stay
     separable (the streaming default attributes host dispatch time to
-    scatter and wait time at retirement to kernel and gather).
+    scatter and wait time at retirement to kernel and gather; the
+    ``t_dev_*`` fields hold the device's own seconds in both).
     """
 
     def __init__(self, engine: AlignmentEngine, *,
@@ -388,11 +408,26 @@ class AlignmentSession:
             return ev
         return time.perf_counter()
 
+    @contextlib.contextmanager
+    def _fatal(self) -> Iterator[None]:
+        """A failure inside abandons the waves in flight and fails the
+        session, then propagates."""
+        try:
+            yield
+        except Exception as e:
+            self._error = e
+            self._abandon_inflight()
+            raise
+
+    def _elapsed(self, a, b) -> float:
+        """Seconds between two marks that have both passed."""
+        return a.elapsed_time(b) / 1e3 if self._cuda else b - a
+
     def _seconds(self, a, b) -> float:
+        """Seconds between two marks, waiting for ``b`` on a card."""
         if self._cuda:
             b.synchronize()
-            return a.elapsed_time(b) / 1e3
-        return b - a
+        return self._elapsed(a, b)
 
     def _dispatch(self, ticket: Ticket, rows: np.ndarray, width: int,
                   s_max: int, k_max: int, recovery: bool) -> None:
@@ -402,59 +437,69 @@ class AlignmentSession:
         while len(self._inflight) >= self.max_inflight:
             self._retire_one()
         eng = self.engine
+        _on = obs_trace.enabled()
         with obs_trace.span(
                 "wave.scatter", cat="wave",
                 args={"ticket": ticket.index, "rows": len(rows),
                       "width": width, "s_max": s_max,
-                      "recovery": recovery}
-                if obs_trace.enabled() else None) as sp:
+                      "recovery": recovery} if _on else None) as sp:
             for fid in ticket.flows:
                 sp.flow_step(fid)
             t0 = time.perf_counter()
-            nb = min(_quantize_rows(len(rows), eng.n_workers),
-                     _round_up(self.wave_pairs, eng.n_workers))
-            pc = _pad_rows(_fit_width(ticket._p[rows], width), nb)
-            tc = _pad_rows(_fit_width(ticket._t[rows], width), nb)
-            plc = _pad_rows(ticket._plen[rows], nb)
-            tlc = _pad_rows(ticket._tlen[rows], nb)
-            arrays = [pc, tc, plc, tlc]
-            if ticket.output == "bidir_meet":
-                # meet waves carry each pair's known cost as a 5th input
-                arrays.append(_pad_rows(ticket._starget[rows], nb))
-            exe, hit = eng._executable_for(pc.shape, tc.shape, s_max, k_max,
-                                           ticket.output, pen=ticket.pen,
-                                           heur=ticket.heur,
-                                           states=ticket.states)
-            for st in (ticket.stats, self.stats):
-                if hit:
-                    st.cache_hits += 1
-                else:
-                    st.cache_misses += 1
-                st.bytes_in += pc.nbytes + tc.nbytes + plc.nbytes + tlc.nbytes
-                st.rows_real += len(rows)
-                st.rows_padded += nb
-            pre = exe.n_traces
+            with obs_trace.span("scatter.pack", cat="wave"):
+                nb = min(_quantize_rows(len(rows), eng.n_workers),
+                         _round_up(self.wave_pairs, eng.n_workers))
+                pc = _pad_rows(_fit_width(ticket._p[rows], width), nb)
+                tc = _pad_rows(_fit_width(ticket._t[rows], width), nb)
+                plc = _pad_rows(ticket._plen[rows], nb)
+                tlc = _pad_rows(ticket._tlen[rows], nb)
+                arrays = [pc, tc, plc, tlc]
+                if ticket.output == "bidir_meet":
+                    # meet waves carry each pair's known cost as a 5th input
+                    arrays.append(_pad_rows(ticket._starget[rows], nb))
             t_gather = None
-            try:
-                with obs_profile.annotation("wfa.kernel.dispatch"):
-                    t_host = time.perf_counter() - t0
+            with obs_trace.span("scatter.stage", cat="wave") as ssp, \
+                    self._fatal():
+                staged, dst = eng._stage(*arrays)
+                if _on:
+                    ssp.set(bytes=sum(a.nbytes for a in staged))
+            t_host = time.perf_counter() - t0
+            with obs_trace.span("scatter.launch", cat="wave"):
+                # a failed lookup leaves the session as it was; from the
+                # copy in on, a failure abandons the waves in flight
+                exe, hit = eng._executable_for(
+                    pc.shape, tc.shape, s_max, k_max, ticket.output,
+                    pen=ticket.pen, heur=ticket.heur, states=ticket.states)
+                for st in (ticket.stats, self.stats):
+                    if hit:
+                        st.cache_hits += 1
+                    else:
+                        st.cache_misses += 1
+                    st.bytes_in += (pc.nbytes + tc.nbytes + plc.nbytes
+                                    + tlc.nbytes)
+                    st.rows_real += len(rows)
+                    st.rows_padded += nb
+                pre = exe.n_traces
+                with self._fatal():
+                    # staged and allocated before e0, so e0 -> e1 brackets
+                    # only the copies
                     e0 = self._mark()
-                    dev = eng._device_put(*arrays)
+                    dev = eng._enqueue(staged, dst)
                     e1 = self._mark()
-                    res = exe.call(*dev)
-                    xfer = _Transfer(res, eng.device)
+                    with kernel_marks() as kmarks:
+                        res = exe.call(*dev)
+                    xfer = _Transfer(res, eng.device, self._mark)
+            with self._fatal():
                 if self._sync:
                     # per-phase split: host packing + copy in, the kernel,
                     # and the copy out (events bracket each on a card)
-                    e2 = xfer.kernel_done or time.perf_counter()
-                    e3 = xfer.copied or time.perf_counter()
                     t_scat = t_host + self._seconds(e0, e1)
-                    t_kern = self._seconds(e1, e2)
-                    t_gather = self._seconds(e2, e3)
+                    t_kern = self._seconds(e1, xfer.kernel_done)
+                    t_gather = self._seconds(xfer.kernel_done, xfer.copied)
                     for st in (ticket.stats, self.stats):
                         st.t_scatter += t_scat
                         st.t_kernel += t_kern
-                    if obs_trace.enabled():
+                    if _on:
                         sp.set(output=ticket.output, t_kernel=t_kern,
                                t_copy_out=t_gather)
                 else:
@@ -462,16 +507,13 @@ class AlignmentSession:
                     # are both still in flight behind this wave
                     for st in (ticket.stats, self.stats):
                         st.t_scatter += time.perf_counter() - t0
-            except Exception as e:
-                self._error = e
-                self._abandon_inflight()
-                raise
             n_tr = exe.n_traces - pre
             for st in (ticket.stats, self.stats):
                 st.n_traces += n_tr
             keep = ticket.output == "cigar"
             self._inflight.append(_Wave(ticket, rows, xfer, plc, tlc, k_max,
-                                        recovery,
+                                        recovery, e0=e0, e1=e1,
+                                        kmarks=kmarks,
                                         pc=pc if keep else None,
                                         tc=tc if keep else None,
                                         t_gather=t_gather))
@@ -503,32 +545,37 @@ class AlignmentSession:
         with obs_trace.span("wave.kernel", cat="wave", args=_args) as sp:
             for fid in ticket.flows:
                 sp.flow_step(fid)
-            try:
-                with obs_profile.annotation("wfa.kernel.wait"):
-                    wave.xfer.wait_kernel()
-            except Exception as e:
-                self._error = e
-                self._abandon_inflight()
-                raise
+            with self._fatal():
+                wave.xfer.wait_kernel()
         t1 = time.perf_counter()
         with obs_trace.span("wave.gather", cat="wave", args=_args) as sp:
             for fid in ticket.flows:
                 sp.flow_step(fid)
-            try:
+            with self._fatal():
                 res = wave.xfer.fetch()
-            except Exception as e:
-                self._error = e
-                self._abandon_inflight()
-                raise
             full = res.score
             out = full[: len(wave.rows)]
             t2 = time.perf_counter()
+            # the wave's own device timeline: fetch() waited for `copied`,
+            # so every mark before it has passed
+            x = wave.xfer
+            d_in = self._elapsed(wave.e0, wave.e1)
+            d_kern = (sum(a.elapsed_time(b) for a, b in wave.kmarks) / 1e3
+                      if wave.kmarks
+                      else self._elapsed(wave.e1, x.kernel_done))
+            d_out = self._elapsed(x.copy_start, x.copied)
+            if _on:
+                sp.set(t_dev_copy_in=d_in, t_dev_kernel=d_kern,
+                       t_dev_copy_out=d_out)
             for st in (ticket.stats, self.stats):
                 if self._sync:   # sync mode billed the kernel at dispatch
                     st.t_gather += wave.t_gather
                 else:
                     st.t_kernel += t1 - t0
                     st.t_gather += t2 - t1
+                st.t_dev_copy_in += d_in
+                st.t_dev_kernel += d_kern
+                st.t_dev_copy_out += d_out
                 st.bytes_out += full.nbytes
             ticket._scores[wave.rows] = out
             ticket._steps += int(res.n_steps)

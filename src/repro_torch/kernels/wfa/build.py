@@ -16,19 +16,19 @@ from repro_torch.kernels.build import FLAGS, Library  # noqa: F401
 
 def _declare(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.wfa_launch.argtypes = [P] * 10 + [I] * 17 + [P]
+    lib.wfa_launch.argtypes = [P] * 10 + [I] * 17 + [P] * 3
     lib.wfa_launch.restype = I
     lib.wfa_scratch_ints.argtypes = [I] * 10
     lib.wfa_scratch_ints.restype = ctypes.c_longlong
     lib.wfa_full_shape.argtypes = [I] * 12 + [P]
     lib.wfa_full_shape.restype = I
-    lib.wfa_band_launch.argtypes = [P] * 10 + [I] * 16 + [P]
+    lib.wfa_band_launch.argtypes = [P] * 10 + [I] * 16 + [P] * 3
     lib.wfa_band_launch.restype = I
     lib.wfa_band_scratch_ints.argtypes = [I] * 8
     lib.wfa_band_scratch_ints.restype = ctypes.c_longlong
     lib.wfa_error_string.argtypes = [I]
     lib.wfa_error_string.restype = ctypes.c_char_p
-    lib.wfa_meet_launch.argtypes = [P] * 17 + [I] * 17 + [P]
+    lib.wfa_meet_launch.argtypes = [P] * 17 + [I] * 17 + [P] * 3
     lib.wfa_meet_launch.restype = I
     lib.wfa_meet_scratch_ints.argtypes = [I] * 8
     lib.wfa_meet_scratch_ints.restype = ctypes.c_longlong

@@ -1014,48 +1014,76 @@ __global__ void __launch_bounds__(FULL_THREADS)
   }
 }
 
+// Timing events a launch records on its stream right around the kernel, so
+// that their interval is the kernel alone (null: none).
+struct Marks {
+  void* start;
+  void* end;
+};
+
+// Run `launch` (one kernel launch on `stream`) between the marks ->
+// cudaGetLastError() after the launch, or the events' own error.
+template <typename F>
+cudaError_t marked(Marks m, cudaStream_t stream, F launch) {
+  cudaError_t err;
+  if (m.start && (err = cudaEventRecord((cudaEvent_t)m.start, stream)) !=
+                     cudaSuccess)
+    return err;
+  launch();
+  err = cudaGetLastError();
+  if (err == cudaSuccess && m.end)
+    err = cudaEventRecord((cudaEvent_t)m.end, stream);
+  return err;
+}
+
 template <bool A, bool T, int H>
 cudaError_t launch_band(const BandParams& p, int threads, size_t smem,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, Marks m) {
   auto kern = wfa_band_kernel<A, T, H>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<p.B / p.BP, threads, smem, stream>>>(p);
-  return cudaGetLastError();
+  return marked(m, stream, [&] {
+    kern<<<p.B / p.BP, threads, smem, stream>>>(p);
+  });
 }
 
 template <bool A, bool T>
 cudaError_t band_by_heur(const BandParams& p, int heur, int threads,
-                         size_t smem, cudaStream_t stream) {
+                         size_t smem, cudaStream_t stream, Marks m) {
   switch (heur) {
-    case HEUR_NONE: return launch_band<A, T, HEUR_NONE>(p, threads, smem, stream);
+    case HEUR_NONE:
+      return launch_band<A, T, HEUR_NONE>(p, threads, smem, stream, m);
     case HEUR_ADAPTIVE:
-      return launch_band<A, T, HEUR_ADAPTIVE>(p, threads, smem, stream);
-    case HEUR_ZDROP: return launch_band<A, T, HEUR_ZDROP>(p, threads, smem, stream);
+      return launch_band<A, T, HEUR_ADAPTIVE>(p, threads, smem, stream, m);
+    case HEUR_ZDROP:
+      return launch_band<A, T, HEUR_ZDROP>(p, threads, smem, stream, m);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <bool A, bool T, int H>
 cudaError_t launch_full(const FullParams& p, int threads, size_t smem,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, Marks m) {
   auto kern = wfa_full_kernel<A, T, H>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<p.B / p.BP, threads, smem, stream>>>(p);
-  return cudaGetLastError();
+  return marked(m, stream, [&] {
+    kern<<<p.B / p.BP, threads, smem, stream>>>(p);
+  });
 }
 
 template <bool A, bool T>
 cudaError_t full_by_heur(const FullParams& p, int heur, int threads,
-                         size_t smem, cudaStream_t stream) {
+                         size_t smem, cudaStream_t stream, Marks m) {
   switch (heur) {
-    case HEUR_NONE: return launch_full<A, T, HEUR_NONE>(p, threads, smem, stream);
+    case HEUR_NONE:
+      return launch_full<A, T, HEUR_NONE>(p, threads, smem, stream, m);
     case HEUR_ADAPTIVE:
-      return launch_full<A, T, HEUR_ADAPTIVE>(p, threads, smem, stream);
-    case HEUR_ZDROP: return launch_full<A, T, HEUR_ZDROP>(p, threads, smem, stream);
+      return launch_full<A, T, HEUR_ADAPTIVE>(p, threads, smem, stream, m);
+    case HEUR_ZDROP:
+      return launch_full<A, T, HEUR_ZDROP>(p, threads, smem, stream, m);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1125,14 +1153,16 @@ int wfa_full_shape(int B, int BP, int k_pad, int lane_lo, int lane_hi, int W,
 // k_pad/2, of which no front can leave [lane_lo, lane_hi] up to s_max
 // (kernel.full_lanes); `scratch` holds wfa_scratch_ints(...) ints (null
 // when that is 0); with `trace`, the planes are zeroed.  Any character code
-// compares exactly.  Returns cudaGetLastError() after the launch (0 =
-// launched); faults during the run surface at the next sync.
+// compares exactly.  `mark_start` / `mark_end` (cudaEvent_t, or null) are
+// recorded on `stream` right before and right after the kernel.  Returns
+// cudaGetLastError() after the launch (0 = launched); faults during the run
+// surface at the next sync.
 int wfa_launch(const int* pattern, const int* text, const int* plen,
                const int* tlen, int* score, int* steps, int* m_bt, int* i_bt,
                int* d_bt, int* scratch, int B, int Lp, int Lt, int BP,
                int k_pad, int lane_lo, int lane_hi, int s_max, int x, int o,
                int e, int W, int affine, int trace, int heur, int hp1,
-               int hp2, void* stream) {
+               int hp2, void* stream, void* mark_start, void* mark_end) {
   if (!full_args_ok(B, BP, k_pad, lane_lo, lane_hi, W, e))
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
@@ -1154,11 +1184,12 @@ int wfa_launch(const int* pattern, const int* text, const int* plen,
                lane_lo, KC, s_max, x, o, e, W, e + 1, hp1, hp2, l.wpp,
                l.rings_smem, l.seq_smem};
   cudaStream_t st = (cudaStream_t)stream;
+  const Marks m{mark_start, mark_end};
   if (affine)
-    return trace ? full_by_heur<true, true>(p, heur, l.threads, l.smem, st)
-                 : full_by_heur<true, false>(p, heur, l.threads, l.smem, st);
-  return trace ? full_by_heur<false, true>(p, heur, l.threads, l.smem, st)
-               : full_by_heur<false, false>(p, heur, l.threads, l.smem, st);
+    return trace ? full_by_heur<true, true>(p, heur, l.threads, l.smem, st, m)
+                 : full_by_heur<true, false>(p, heur, l.threads, l.smem, st, m);
+  return trace ? full_by_heur<false, true>(p, heur, l.threads, l.smem, st, m)
+               : full_by_heur<false, false>(p, heur, l.threads, l.smem, st, m);
 }
 
 // Ints of global scratch wfa_band_launch needs for B pairs in rows of Lp /
@@ -1179,7 +1210,7 @@ int wfa_band_launch(const int* pattern, const int* text, const int* plen,
                     int* i_bt, int* d_bt, int* scratch, int B, int Lp, int Lt,
                     int BP, int k_pad, int kc, int s_max, int x, int o, int e,
                     int W, int affine, int trace, int heur, int hp1, int hp2,
-                    void* stream) {
+                    void* stream, void* mark_start, void* mark_end) {
   if (BP < 1 || B % BP != 0 || kc < 2 || kc > k_pad || W < 2)
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
@@ -1200,11 +1231,12 @@ int wfa_band_launch(const int* pattern, const int* text, const int* plen,
                scratch, gseq, B, Lp, Lt, BP, k_pad, kc, s_max, x, o, e, W, hp1,
                hp2, l.SW, l.seq_smem};
   cudaStream_t st = (cudaStream_t)stream;
+  const Marks m{mark_start, mark_end};
   if (affine)
-    return trace ? band_by_heur<true, true>(p, heur, threads, l.smem, st)
-                 : band_by_heur<true, false>(p, heur, threads, l.smem, st);
-  return trace ? band_by_heur<false, true>(p, heur, threads, l.smem, st)
-               : band_by_heur<false, false>(p, heur, threads, l.smem, st);
+    return trace ? band_by_heur<true, true>(p, heur, threads, l.smem, st, m)
+                 : band_by_heur<true, false>(p, heur, threads, l.smem, st, m);
+  return trace ? band_by_heur<false, true>(p, heur, threads, l.smem, st, m)
+               : band_by_heur<false, false>(p, heur, threads, l.smem, st, m);
 }
 
 const char* wfa_error_string(int code) {

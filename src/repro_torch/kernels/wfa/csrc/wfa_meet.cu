@@ -568,23 +568,37 @@ __global__ void __launch_bounds__(THREADS, 4) wfa_meet_kernel(const MeetParams p
   if (tid == 0) write_out(p, pair, -1, unmet_steps, -1, 0, 0, 0, 0, 0);
 }
 
+// Timing events recorded on the stream right around the kernel (null: none).
+struct Marks {
+  void* start;
+  void* end;
+};
+
 template <bool A, int H>
-cudaError_t launch_meet(const MeetParams& p, size_t smem, cudaStream_t stream) {
+cudaError_t launch_meet(const MeetParams& p, size_t smem, cudaStream_t stream,
+                        Marks m) {
   auto kern = wfa_meet_kernel<A, H>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
+  if (m.start && (err = cudaEventRecord((cudaEvent_t)m.start, stream)) !=
+                     cudaSuccess)
+    return err;
   kern<<<p.B, THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess && m.end)
+    err = cudaEventRecord((cudaEvent_t)m.end, stream);
+  return err;
 }
 
 template <bool A>
 cudaError_t meet_by_heur(const MeetParams& p, int heur, size_t smem,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, Marks m) {
   switch (heur) {
-    case HEUR_NONE: return launch_meet<A, HEUR_NONE>(p, smem, stream);
-    case HEUR_ADAPTIVE: return launch_meet<A, HEUR_ADAPTIVE>(p, smem, stream);
-    case HEUR_ZDROP: return launch_meet<A, HEUR_ZDROP>(p, smem, stream);
+    case HEUR_NONE: return launch_meet<A, HEUR_NONE>(p, smem, stream, m);
+    case HEUR_ADAPTIVE:
+      return launch_meet<A, HEUR_ADAPTIVE>(p, smem, stream, m);
+    case HEUR_ZDROP: return launch_meet<A, HEUR_ZDROP>(p, smem, stream, m);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -606,8 +620,10 @@ long long wfa_meet_scratch_ints(int B, int Lp, int Lt, int k_pad, int Wd,
 // holds kernel.meet_band's M ranges, [s_max + 1][2][2] ints; `steps` gets
 // each pair's exit step; `scratch` holds wfa_meet_scratch_ints(...) ints.
 // Every character code must lie in [0, 255] (they are compared as bytes).
-// States are 0 = M, 1 = I, 2 = D.  Returns cudaGetLastError() after the
-// launch (0 = launched); faults during the run surface at the next sync.
+// States are 0 = M, 1 = I, 2 = D.  `mark_start` / `mark_end` (cudaEvent_t,
+// or null) are recorded on `stream` right around the kernel.  Returns
+// cudaGetLastError() after the launch (0 = launched); faults during the run
+// surface at the next sync.
 int wfa_meet_launch(const int* pattern, const int* text, const int* pat_rev,
                     const int* txt_rev, const int* plen, const int* tlen,
                     const int* starget, const int* band, int* score,
@@ -615,7 +631,8 @@ int wfa_meet_launch(const int* pattern, const int* text, const int* pat_rev,
                     int* safe, int* scratch, int B, int Lp, int Lt, int k_pad,
                     int s_max, int x, int o, int e, int Wd, int Dm, int De,
                     int affine, int heur, int hp1, int hp2, int begin_state,
-                    int end_state, void* stream) {
+                    int end_state, void* stream, void* mark_start,
+                    void* mark_end) {
   const int reach = affine ? o + e : e;   // the recurrence's deepest read
   if (k_pad < 2 || k_pad % 2 || x < 1 || e < 1 || o < 0 ||
       (affine && De != e + 1) || Dm <= x || Dm <= reach || Wd < Dm || B < 0 ||
@@ -634,8 +651,9 @@ int wfa_meet_launch(const int* pattern, const int* text, const int* pat_rev,
                scratch, rings, gseq, B, Lp, Lt, k_pad, s_max, x, o, e, Wd,
                Dm, affine ? De : 0, hp1, hp2, begin_state, end_state};
   cudaStream_t st = (cudaStream_t)stream;
-  return affine ? meet_by_heur<true>(p, heur, smem, st)
-                : meet_by_heur<false>(p, heur, smem, st);
+  const Marks m{mark_start, mark_end};
+  return affine ? meet_by_heur<true>(p, heur, smem, st, m)
+                : meet_by_heur<false>(p, heur, smem, st, m);
 }
 
 }  // extern "C"

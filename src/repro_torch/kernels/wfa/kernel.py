@@ -27,7 +27,9 @@ k, h, safe).  The plain version steps each block in lockstep over
 ``[Wd, B, k_pad]`` rings; the kernel runs one pair per CTA over the lanes
 of :func:`meet_band`, tests only in :func:`meet_test_steps`, and
 :func:`block_steps` turns its per-pair exit steps into the per-block
-``steps``.  :data:`LAUNCHES` counts kernel launches per variant.
+``steps``.  :data:`LAUNCHES` counts kernel launches per variant.  Inside a
+:func:`repro_torch.device.kernel_marks` block each CUDA launch records a
+pair of timing events right around its kernel.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ import torch
 from repro_torch.core import scoring
 from repro_torch.core import wavefront as wf
 from repro_torch.core.scoring import AdaptiveBand, ZDrop
+from repro_torch.device import launch_marks
 from repro_torch.obs import trace as obs_trace
 
 # Kernel launches per variant ("score" / "trace" at full width,
@@ -257,21 +260,23 @@ def wfa_cuda(pattern, text, plen, tlen, *, pen, s_max: int, k_pad: int,
     rest = (int(s_max), model.x, model.o, model.e, W, int(affine),
             int(trace), kind, hp1, hp2)
     with torch.cuda.device(dev):     # the library sizes for the current card
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        cur = torch.cuda.current_stream(dev)
+        stream = cur.cuda_stream
+        marks = launch_marks(cur)
         if band:
             Kc = int(band_cap)
             n_scratch = lib.wfa_band_scratch_ints(
                 B, BP, Kc, W, int(affine), int(trace), *dims[1:3])
             scratch = torch.empty(n_scratch, **i32) if n_scratch else None
             rc = lib.wfa_band_launch(*ptrs, ptr(scratch), *dims, Kc, *rest,
-                                     stream)
+                                     stream, *marks)
         else:
             lanes = full_lanes(model, s_max, k_pad)
             n_scratch = lib.wfa_scratch_ints(B, BP, k_pad, *lanes, W,
                                              model.e, int(affine), *dims[1:3])
             scratch = torch.empty(n_scratch, **i32) if n_scratch else None
             rc = lib.wfa_launch(*ptrs, ptr(scratch), *dims, *lanes, *rest,
-                                stream)
+                                stream, *marks)
     if rc != 0:
         raise RuntimeError(f"WFA kernel launch failed: "
                            f"{lib.wfa_error_string(rc).decode()} ({rc})")
@@ -481,13 +486,14 @@ def wfa_meet_cuda(pattern, text, pat_rev, txt_rev, plen, tlen, starget, *,
                                           model.window, De, int(affine))
     scratch = torch.empty(n_scratch, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):     # launch on the tensors' card
+        cur = torch.cuda.current_stream(dev)
         rc = lib.wfa_meet_launch(
             *(t.data_ptr() for t in ins + (band,) + outs),
             scratch.data_ptr(), B, pattern.shape[1], text.shape[1], k_pad,
             int(s_max), model.x, model.o, model.e, Wd, model.window, De,
             int(affine), kind, hp1, hp2, wf.STATES.index(begin_state),
-            wf.STATES.index(end_state),
-            torch.cuda.current_stream(dev).cuda_stream)
+            wf.STATES.index(end_state), cur.cuda_stream,
+            *launch_marks(cur))
     if rc != 0:
         raise RuntimeError(f"WFA meet kernel launch failed: "
                            f"{lib.wfa_error_string(rc).decode()} ({rc})")

@@ -3,15 +3,15 @@
 :func:`profile` wraps a block in ``torch.profiler.profile`` (the
 ``--profile DIR`` flag on the launchers), recording host and, where a card
 is present, CUDA activity, and writes a Chrome trace into ``DIR``
-(viewable in Perfetto).  :func:`annotation` opens a named
-``torch.profiler.record_function`` range **only while a profile is
-active**, so the instrumented hot path (session dispatch, kernel wait)
-carries the same stage names in the device trace as in
-:mod:`repro_torch.obs.trace`'s host-side timeline.
+(viewable in Perfetto).  While the block runs, every span of
+:mod:`repro_torch.obs.trace` (``wave.scatter``, ``scatter.pack``,
+``traceback.walk``, ...) also opens a ``torch.profiler.record_function``
+of its name, whether or not the tracer itself is on, so the profiler's
+trace alone carries the program's spans as user annotations on the
+profiler's own clock.
 
-When no profile is active, :func:`annotation` returns a shared no-op
-context manager (no allocation), mirroring the disabled-mode contract of
-the tracer.
+Outside a profile the spans stay as they are: with the tracer off too,
+``trace.span`` still returns the shared no-op span.
 """
 from __future__ import annotations
 
@@ -21,43 +21,32 @@ from typing import Iterator, Optional
 
 import torch
 
-__all__ = ["active", "annotation", "profile"]
+from repro_torch.obs import trace as obs_trace
 
-# Set only while a profile() block is running; annotation() gates on it so
-# steady-state code pays one branch when not profiling.
-_active = False
-
-_NULL_CTX = contextlib.nullcontext()
+__all__ = ["active", "profile"]
 
 
 def active() -> bool:
-    return _active
+    """Whether a :func:`profile` block is running (its mirror of the
+    spans is installed)."""
+    return obs_trace._mirror is not None
 
 
 @contextlib.contextmanager
 def profile(outdir: Optional[str]) -> Iterator[None]:
     """Profile the block and write ``outdir/trace.json`` (``None`` →
     no-op, so callers can pass an optional CLI flag straight through)."""
-    global _active
     if not outdir:
         yield
         return
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    _active = True
-    try:
-        with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts) as prof:
+        prev = obs_trace._set_mirror(torch.profiler.record_function)
+        try:
             yield
-    finally:
-        _active = False
+        finally:
+            obs_trace._set_mirror(prev)
     os.makedirs(outdir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(outdir, "trace.json"))
-
-
-def annotation(name: str):
-    """A named ``record_function`` range when a profile is active, else a
-    shared no-op context manager."""
-    if not _active:
-        return _NULL_CTX
-    return torch.profiler.record_function(name)

@@ -9,10 +9,13 @@ markers — and :func:`save` writes the standard Chrome trace-event JSON
 Design constraints (this layer stays compiled into the hot path):
 
 * **near-zero overhead when disabled** — every public entry point checks
-  one module-global boolean and returns immediately; :func:`span` returns
-  the shared :data:`NULL` no-op span (no allocation), so instrumented code
-  pays a function call and a branch, nothing else.
+  module globals and returns immediately; :func:`span` returns the shared
+  :data:`NULL` no-op span (no allocation), so instrumented code pays a
+  function call and a branch, nothing else.
   ``benchmarks/obs_overhead.py --check`` gates this (≤2% projected).
+* **one clock with the device** — while a ``repro_torch.obs.profile``
+  block runs, each span also opens a ``torch.profiler.record_function``
+  of its name, so the profiler's trace carries the program's spans.
 * **thread-safe** — events are appended under one lock; timestamps come
   from a single ``time.perf_counter`` origin so spans from any number of
   threads land on one consistent timeline (per-thread lanes via ``tid``).
@@ -65,6 +68,22 @@ def _set_recorder(rec) -> None:
     owns this — instrumented code never calls it)."""
     global _rec
     _rec = rec
+
+
+# Device-trace mirror: while a ``torch.profiler`` block of
+# ``repro_torch.obs.profile`` runs, a factory ``name -> context manager``
+# (``torch.profiler.record_function``) that every real span enters for its
+# lifetime, so the profiler's trace carries the spans on its own clock.
+_mirror = None
+
+
+def _set_mirror(factory):
+    """Install/remove the device-trace mirror (``repro_torch.obs.profile``
+    owns this) -> the one it replaces."""
+    global _mirror
+    prev, _mirror = _mirror, factory
+    return prev
+
 
 _lock = threading.Lock()
 _events: List[dict] = []
@@ -155,7 +174,7 @@ class Span:
     can assume the tracer is live.
     """
 
-    __slots__ = ("name", "cat", "args", "_ts", "_tid")
+    __slots__ = ("name", "cat", "args", "_ts", "_tid", "_mir")
 
     def __init__(self, name: str, cat: str, args: Optional[dict]):
         self.name = name
@@ -163,14 +182,22 @@ class Span:
         self.args = dict(args) if args else {}
         self._tid = threading.get_ident()
         self._ts = _now_us()
+        self._mir = None
 
     def __enter__(self) -> "Span":
+        m = _mirror
+        if m is not None:           # after the timestamp: spans lead
+            self._mir = m(self.name)
+            self._mir.__enter__()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
         _emit({"name": self.name, "cat": self.cat, "ph": "X",
                "ts": self._ts, "dur": _now_us() - self._ts,
                "pid": _PID, "tid": self._tid, "args": self.args})
+        if self._mir is not None:
+            self._mir.__exit__(exc_type, exc, tb)
+            self._mir = None
 
     def set(self, **kw) -> "Span":
         """Attach args discovered mid-span."""
@@ -231,11 +258,12 @@ def span(name: str, cat: str = "repro",
          args: Optional[dict] = None) -> "Span | _NullSpan":
     """Open a span (use as a context manager).  Disabled → :data:`NULL`.
 
-    When the flight recorder is active the real span is created even
-    with the tracer off, so the ring sees recent history; the fully-off
-    path (no tracer, no recorder) still allocates nothing.
+    When the flight recorder or a profile (the device-trace mirror) is
+    active the real span is created even with the tracer off, so the ring
+    sees recent history and the profiler's trace the span; the fully-off
+    path (no tracer, no recorder, no profile) still allocates nothing.
     """
-    if not _on and _rec is None:
+    if not _on and _rec is None and _mirror is None:
         return NULL
     return Span(name, cat, args)
 
