@@ -25,7 +25,11 @@ Phases (each raises on failure, and the script then exits non-zero):
    variant, up to each block's exit step for the trace); then at the BiWFA
    path's pass 1 (1,024 pairs of 10 kb, exact, ``k_pad`` 4,992) the score
    wave and a 64-pair trace launch (39,936 cells a block), each held whole
-   against the plain version, both timed;
+   against the plain version, both timed; then the traceback kernel
+   (``csrc/wfa_traceback.cu``) on the trace kernel's planes of the 65,536-
+   pair wave and of a 64-pair 10 kb launch: ops, op counts and status rows
+   equal to the host's walk and replay (``core.cigar.decode_packed_plain``),
+   both timed, with the bytes bound;
 4. meet kernel vs plain — the CUDA meet kernel against its plain version
    over {GapAffine(4,6,2), GapLinear, Edit} x {exact, AdaptiveBand(10,4),
    ZDrop(8)} x boundary states ((M,M); (I,D) and (D,M) for affine) on the
@@ -37,7 +41,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    (``kernel.meet_band``) up to each pair's meet;
 5. main path — ``repro_torch.launch.align.main`` with ``--backend kernel``
    on 262,144 pairs (``--mode both --verify 512``) and with ``--output
-   cigar`` on 65,536 pairs; the kernel's launch counts must rise; then the
+   cigar`` on 65,536 pairs; the kernel's launch counts must rise, and the
+   CIGAR run must decode every trace wave on the card; then the
    ``ring`` backend on the same pairs must give the same scores;
 6. BiWFA path — the launcher with ``--output cigar --trace bidir`` on
    1,024 pairs of 10 kb at E = 3% (``--mode both --verify 4``); the meet,
@@ -766,6 +771,90 @@ def phase_full_10kb(K, S, dev):
     return out
 
 
+def traceback_bound(plen, tlen, L):
+    """The least time the card could take to decode one trace wave ->
+    (ms, bytes): each int32 character of both rows up to its length read
+    once, each pair's score and lengths read and its op row (``L`` bytes),
+    count and status row written once, over the memory rate.  The plane
+    words the walk reads (a few a pair) are not counted."""
+    import numpy as np
+    nbytes = (4 * int((plen.astype(np.int64) + tlen).sum())
+              + len(plen) * (4 + 8 + L + 4 + 16))
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def phase_traceback(K, S, eng, P, plen, T, tlen, dev):
+    """Phase 3d: the traceback kernel (``csrc/wfa_traceback.cu``) on the
+    trace kernel's planes at the main path's wave shape (65,536 pairs of
+    100 bp, pass-1 bounds) and at the BiWFA path's 10 kb trace launch (64
+    pairs, exact pass-1 bounds, ``k_pad`` 4,992): ops, op counts and status
+    rows held bit for bit against ``core.cigar.decode_packed_plain`` (the
+    host's walk and replay) on copies of the same planes, every status 0,
+    the kernel and the plain version timed -> timing records."""
+    import numpy as np
+    from repro_torch.core import cigar
+    from repro_torch.core.engine import AlignmentEngine
+    from repro_torch.core.wavefront import WFAResult
+    from repro_torch.data.reads import ReadPairSpec, generate_pairs
+    P10, plen10, T10, tlen10 = generate_pairs(ReadPairSpec(
+        n_pairs=FULL_TRACE_PAIRS, read_len=LONG_LEN, edit_frac=LONG_EDIT,
+        seed=0))
+    eng10 = AlignmentEngine(S.GapAffine(4, 6, 2), backend="kernel",
+                            edit_frac=LONG_EDIT, device=dev)
+    shapes = (("100bp", eng, P, plen, T, tlen, WAVE, 128, READ_LEN),
+              ("10kb", eng10, P10, plen10, T10, tlen10, FULL_TRACE_PAIRS,
+               max(P10.shape[1], T10.shape[1]), LONG_BUCKET))
+    out = {}
+    for name, e, Pw, plw, Tw, tlw, n, width, bucket in shapes:
+        args = wave_inputs(Pw, plw, Tw, tlw, n, width, dev)
+        s_max, k_max = e._bounds_for_bucket(
+            bucket if name == "10kb" else width, plw[:n], tlw[:n], False)
+        k_pad = -(-(2 * k_max + 1) // 128) * 128
+        got = K.wfa_cuda(*args, pen=e.pen, s_max=s_max, k_pad=k_pad,
+                         block_pairs=8, trace=True)
+        score, planes = got[0], got[2:]
+        dec = lambda: K.wfa_traceback_cuda(score, planes, *args, pen=e.pen,
+                                           s_max=s_max)
+        ops, n_ops, status = dec()
+        torch_sync()
+        host = [a.cpu().numpy() for a in args]
+        res = WFAResult(score.cpu().numpy(), None, None, None, s_max,
+                        *(b.cpu().numpy() for b in planes))
+        t0 = time.perf_counter()
+        want = cigar.decode_packed_plain(res, e.pen, *host)
+        p_ms = (time.perf_counter() - t0) * 1e3
+        del res
+        have = (ops.cpu().numpy(), n_ops.cpu().numpy()[:, 0],
+                status.cpu().numpy())
+        for what, w, g in zip(("ops", "n_ops", "status"), want, have):
+            if w.dtype != g.dtype or w.shape != g.shape \
+                    or not np.array_equal(w, g):
+                bad = (int(np.flatnonzero((w != g).reshape(len(w), -1)
+                                          .any(axis=1))[0])
+                       if w.shape == g.shape else -1)
+                raise AssertionError(f"traceback kernel != plain at {name} "
+                                     f"({what}; first pair {bad})")
+        if have[2].any():
+            raise AssertionError(f"traceback at {name}: status rows set at "
+                                 f"{np.flatnonzero(have[2][:, 0])[:8]}")
+        L = ops.shape[1]
+        k_ms = cuda_ms(dec, 20 if name == "100bp" else 5)
+        bound, nbytes = traceback_bound(plw[:n], tlw[:n], L)
+        out[name] = dict(max_abs_err=0, ms=k_ms, plain_ms=p_ms,
+                         bound_ms=bound, bound_by="bytes", bound_bytes=nbytes,
+                         pairs=n, s_max=s_max, k_pad=k_pad, L=L,
+                         ops=int(have[1].sum()),
+                         plane_bytes=sum(b.nbytes for b in planes))
+        log(f"[traceback] {name}: {n} pairs, s_max={s_max} k_pad={k_pad}, "
+            f"{out[name]['ops']:,} ops: equal to the plain version (ops, "
+            f"counts, status); kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms, "
+            f"bound {bound:.5f} ms ({nbytes:,} bytes); planes "
+            f"{out[name]['plane_bytes']:,} bytes left on the card, "
+            f"{n * L:,} bytes of op rows")
+        del got, score, planes, ops, n_ops, status
+    return out
+
+
 def phase_main_path(K):
     """Phase 5: the launcher on the kernel backend, then on ring."""
     import numpy as np
@@ -790,6 +879,11 @@ def phase_main_path(K):
         f"{time.perf_counter() - t0:.1f}s; launches {launches}")
     if launches["score"] == 0 or launches["trace"] == 0:
         raise AssertionError(f"the main path missed a kernel: {launches}")
+    # every trace wave of the CIGAR run is decoded on the card
+    if launches["traceback"] != launches["trace"]:
+        raise AssertionError(f"the CIGAR path decoded {launches['traceback']}"
+                             f" of {launches['trace']} trace waves on the "
+                             f"card")
     if kern.get("verified") != 512 or cig.get("verified") != 512:
         raise AssertionError("the launcher did not verify 512 pairs")
     ring = {}
@@ -4035,7 +4129,8 @@ def phase_obs(K):
     common = ["--backend", "kernel", "--pairs", str(WAVE), "--read-len",
               str(READ_LEN), "--edit-frac", str(EDIT_FRAC), "--chunk-pairs",
               str(OBS_WAVE), "--verify", "512", "--device", "cuda"]
-    launches, report, scores = {"score": 0, "trace": 0}, {}, None
+    launches = {"score": 0, "trace": 0, "traceback": 0}
+    report, scores = {}, None
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     with tempfile.TemporaryDirectory() as tmp:
         paths = {}
@@ -4777,6 +4872,10 @@ def main() -> int:
     log("[build] ptxas (band): " + "; ".join(band_regs))
     full_regs = [f"{short(n)} {r} registers, {sp} B spilled"
                  for n, sp, r in entries if "wfa_full_kernel" in n]
+    tb_regs = [f"wfa_traceback_kernel<{m.group(1)}> {r} registers, {sp} B "
+               f"spilled" for n, sp, r in entries
+               for m in [re.search(r"wfa_traceback_kernelILb(\d)E", n)] if m]
+    log("[build] ptxas (traceback): " + "; ".join(tb_regs))
     log("[build] ptxas (full width): " + "; ".join(full_regs))
     full_occ = full_occupancy(K, S, build.load())
     log("[build] full width, blocks resident per SM at the main path's "
@@ -4798,6 +4897,10 @@ def main() -> int:
     t0 = time.perf_counter()
     timing.update(phase_full_10kb(K, S, dev))
     log(f"[full] 10 kb phase in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    tb_timing = phase_traceback(K, S, eng_for(S.GapAffine(4, 6, 2)), P,
+                                plen, T, tlen, dev)
+    log(f"[traceback] phase in {time.perf_counter() - t0:.1f}s")
 
     # 4. meet kernel vs plain on the card
     t0 = time.perf_counter()
@@ -5035,6 +5138,27 @@ def main() -> int:
             rec.update(full_width_heuristic_ms=r["full_heur_ms"],
                        full_width_exact_ms=r["full_exact_ms"])
         kernels.append(rec)
+    tb = tb_timing["100bp"]
+    kernels.append({
+        "name": "wfa_traceback", "route": "cuda",
+        "source": "src/repro_torch/kernels/wfa/csrc/wfa_traceback.cu",
+        # host code in the JAX package: the packed walk and replay
+        "replaces": "src/repro/core/cigar.py:496",
+        # the main CIGAR, BiWFA, mapping, alignment-service,
+        # telemetry-capture and shim paths: one a trace wave on the card
+        "launches": (launches["traceback"] + b_launches["traceback"]
+                     + map_launches["traceback"]
+                     + sum(v["traceback"] for v in sa_launches.values())
+                     + obs_launches["traceback"]
+                     + shim_launches["traceback"]),
+        "max_abs_err": 0,
+        # kernel and plain (the host's walk and replay) on the same
+        # 65,536-pair wave of 100 bp; the bound counts bytes only
+        "ms": tb["ms"], "plain_ms": tb["plain_ms"],
+        "bound_ms": tb["bound_ms"], "bound_by": tb["bound_by"],
+        "wave_10kb": tb_timing["10kb"],
+        "registers": tb_regs,
+        "library_ms": None})
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         # the path's body (entry point and the other bodies: csrc/

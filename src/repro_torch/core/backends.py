@@ -19,7 +19,9 @@ recurrence kinds a backend serves (plug-ins default to affine-only).
 
 Every backend serves the score output through ``fn``; ``trace_variant``
 (same signature) also returns the packed 2-bit provenance words
-(``m_bt``/``i_bt``/``d_bt``) that ``core.cigar`` decodes into CIGARs.
+(``m_bt``/``i_bt``/``d_bt``) that ``core.cigar`` decodes into CIGARs, or,
+the ``kernel`` backend on a card, those words already decoded there
+(``ops``/``n_ops``/``status``).
 ``meet_variant`` (optional; the signature and ``BidirMeetResult`` of
 ``core.wavefront.wfa_bidir_meet``) serves the BiWFA driver's meet waves;
 backends without one use that shared solver.
@@ -36,7 +38,8 @@ Built-ins (all serve every penalty model and heuristic):
                  traceback over the ``[s_max+1, B, K]`` history
 * ``"ring"``   — rolling-window WFA in plain PyTorch; packed backtrace
 * ``"kernel"`` — the CUDA WFA kernel (its plain version on CPU tensors);
-                 packed backtrace OR-accumulated in registers; the CUDA
+                 packed backtrace OR-accumulated in registers, decoded into
+                 CIGAR ops by the CUDA traceback kernel on a card; the CUDA
                  meet kernel as its meet variant
 * ``"shardmap"`` — the ring solver per mesh shard (per-shard termination,
                  zero collectives: the paper's "no inter-DPU
@@ -221,7 +224,17 @@ def _ring_backend(pattern, text, plen, tlen, *, pen, s_max, k_max, heur=None,
 def _kernel_trace(pattern, text, plen, tlen, *, pen, s_max, k_max,
                   heur=None, block_pairs=None, gather=None, ext_stride=1,
                   band_cap=None):
+    """On a card the traceback kernel decodes the planes where the trace
+    kernel left them, and the result carries the ops (``ops``, ``n_ops``,
+    ``status``) instead of the planes; on the CPU, the planes."""
     from repro_torch.kernels.wfa import ops as kops
+    if pattern.device.type == "cuda":
+        score, ops, n_ops, status, held = kops.wfa_align_cigar(
+            pattern, text, plen, tlen, pen=pen, s_max=s_max, k_max=k_max,
+            heur=heur, block_pairs=block_pairs, band_cap=band_cap,
+            device=pattern.device)
+        return wf.WFAResult(score, None, None, None, int(s_max), ops=ops,
+                            n_ops=n_ops, status=status, plane_nbytes=held)
     score, m_bt, i_bt, d_bt = kops.wfa_align_trace(
         pattern, text, plen, tlen, pen=pen, s_max=s_max, k_max=k_max,
         heur=heur, block_pairs=block_pairs, band_cap=band_cap,

@@ -24,11 +24,24 @@ produced under a wavefront heuristic, whose *scores* are approximate but
 whose provenance chains are internally consistent (pruned lanes are
 unreachable: no surviving cell derives from one).
 
-Traceback is a data-dependent walk, so (like the reference WFA2-lib, and
-like the paper's host-side result handling) it runs on the host in numpy.
-Malformed provenance (a bug, or corrupted words) raises
-:class:`TracebackError` carrying the failing coordinates — never a bare
-``assert`` (those are stripped under ``python -O``).
+Where the packed words are decoded follows where they are.  The
+``kernel`` backend on a card decodes them there, right behind the trace
+kernel (``kernels/wfa/csrc/wfa_traceback.cu``: the same walk and replay, a
+warp a pair), and its result carries a third encoding:
+
+* **decoded ops** — ``ops [B, L]`` int8 (each pair's ops, -1 padded),
+  ``n_ops [B]`` and ``status [B, 4]`` (0, or the walk's or replay's error
+  ``[code, s, k, h]``, :data:`TB_ERRORS`).  :func:`traceback_result` cuts
+  each pair's ops out and raises the first error as the host walk would;
+  :func:`decode_packed_plain` builds the same arrays on the host (the
+  kernel's yardstick).
+
+Every other trace (CPU tensors, the ``ring`` / ``ref`` / ``shardmap``
+backends) is walked on the host in numpy, like the reference WFA2-lib and
+the paper's host-side result handling.  Malformed provenance (a bug, or
+corrupted words) raises :class:`TracebackError` carrying the failing
+coordinates — never a bare ``assert`` (those are stripped under ``python
+-O``).
 
 Op codes match ``core.gotoh.score_cigar``: 0=M(match) 1=X(mismatch)
 2=I(insert, consumes text) 3=D(delete, consumes pattern); -1 = padding.
@@ -63,8 +76,10 @@ class TracebackError(RuntimeError):
 
     def __init__(self, msg: str, *, pair: Optional[int] = None,
                  s: Optional[int] = None, k: Optional[int] = None,
-                 h: Optional[int] = None):
-        self.pair, self.s, self.k, self.h = pair, s, k, h
+                 h: Optional[int] = None, v: Optional[int] = None):
+        # v: the pattern offset of the replay's end check (in ``msg``)
+        self.msg, self.pair, self.s, self.k, self.h, self.v = \
+            msg, pair, s, k, h, v
         where = ", ".join(f"{n}={v}" for n, v in
                           (("pair", pair), ("s", s), ("k", k), ("h", h))
                           if v is not None)
@@ -349,7 +364,7 @@ def _replay(chain, p, t, plen: int, tlen: int,
     if v != plen or h != tlen:
         raise TracebackError(
             f"replay consumed ({v}, {h}) of ({plen}, {tlen})",
-            pair=pair, h=h)
+            pair=pair, h=h, v=v)
     return np.asarray(ops, np.int8)
 
 
@@ -573,16 +588,124 @@ def traceback_packed_batch(result, pen, pattern, text, plen, tlen,
                 for b in range(n)]
 
 
+# ---------------------------------------------------------------------------
+# Decoded ops: the packed trace walked and replayed where it lies.
+
+# The error a decoded pair's status row names, by its code (row [code, s, k,
+# h]): codes 1-7 are the walk's, at (s, k); 8-10 the replay's, at h; 11 the
+# replay's end check, with the pattern offset v in the s slot.
+TB_ERRORS = (None, "origin cell off diagonal 0", "invalid M provenance code",
+             "I chain hit s=0 off the gap seed",
+             "D chain hit s=0 off the gap seed", "invalid I provenance code",
+             "invalid D provenance code", "packed traceback did not terminate",
+             "mismatch op past sequence end", "insertion op past text end",
+             "deletion op past pattern end", "replay consumed")
+_TB_WALK_MAX = 7
+_TB_CONSUMED = 11
+
+
+def _status_row(err: TracebackError) -> tuple:
+    if err.v is not None:
+        return _TB_CONSUMED, err.v, 0, err.h
+    code = TB_ERRORS.index(err.msg)
+    if code <= _TB_WALK_MAX:
+        return code, err.s, err.k, 0
+    return code, 0, 0, err.h
+
+
+def _status_error(pair: int, row, plen: int, tlen: int) -> TracebackError:
+    """The :class:`TracebackError` a status row names."""
+    code, s, k, h = (int(c) for c in row)
+    if code == _TB_CONSUMED:
+        return TracebackError(f"replay consumed ({s}, {h}) of ({plen}, "
+                              f"{tlen})", pair=pair, h=h, v=s)
+    if not 0 < code < len(TB_ERRORS):
+        return TracebackError(f"unknown traceback status {code}", pair=pair)
+    if code <= _TB_WALK_MAX:
+        return TracebackError(TB_ERRORS[code], pair=pair, s=s, k=k)
+    return TracebackError(TB_ERRORS[code], pair=pair, h=h)
+
+
+def decode_packed_plain(result, pen, pattern, text, plen, tlen):
+    """The decoded encoding of a packed trace, built on the host by the walk
+    and the replay -> ``(ops [B, L] int8, n_ops [B] int32, status [B, 4]
+    int32)``, ``L = pattern.shape[1] + text.shape[1]``.
+
+    Row b holds pair b's ops padded with -1 (none where it is unresolved or
+    fails), ``n_ops[b]`` their count, ``status[b]`` 0 or the error the walk
+    or the replay raises for it (:data:`TB_ERRORS`).  A length past its row
+    is clamped to the row, as the trace kernel does.  Boundary states are M
+    to M.  What the CUDA traceback kernel returns, bit for bit."""
+    model = scoring.as_model(pen)
+    m_bt = np.asarray(result.m_bt)
+    i_bt = d_bt = None
+    if model.kind != "linear":
+        i_bt, d_bt = np.asarray(result.i_bt), np.asarray(result.d_bt)
+    scores = np.asarray(result.score).reshape(-1)
+    pattern, text = np.asarray(pattern), np.asarray(text)
+    plen = np.minimum(np.asarray(plen).reshape(-1), pattern.shape[1])
+    tlen = np.minimum(np.asarray(tlen).reshape(-1), text.shape[1])
+    n = scores.shape[0]
+    ops = np.full((n, pattern.shape[1] + text.shape[1]), -1, np.int8)
+    n_ops = np.zeros((n,), np.int32)
+    status = np.zeros((n, 4), np.int32)
+    for b in range(n):
+        if scores[b] < 0:
+            continue
+        pl, tl, chain = int(plen[b]), int(tlen[b]), []
+        try:
+            if i_bt is None:
+                ext = _walk_packed_linear(chain, m_bt[:, b], model.x, model.e,
+                                          int(scores[b]), pl, tl, pair=b)
+            else:
+                ext = _walk_packed(chain, m_bt[:, b], i_bt[:, b], d_bt[:, b],
+                                   model.x, model.o, model.e, int(scores[b]),
+                                   pl, tl, pair=b)
+            row = _replay(chain, pattern[b, :pl], text[b, :tl], pl, tl,
+                          pair=b, extend_start=ext)
+        except TracebackError as err:
+            status[b] = _status_row(err)
+            continue
+        ops[b, :row.size] = row
+        n_ops[b] = row.size
+    return ops, n_ops, status
+
+
+def traceback_decoded(result, plen, tlen) -> List[np.ndarray]:
+    """Per-pair op arrays from the decoded encoding -> as
+    :func:`traceback_packed_batch`: the first pair whose walk failed, else
+    the first whose replay failed, raises its :class:`TracebackError`.
+
+    The used bytes of every row are copied once, in row order, into one
+    ordinary array, and each pair's ops are a slice of it: no array keeps
+    the (pinned) result buffer or a padded row alive."""
+    status = np.asarray(result.status).reshape(-1, 4)
+    bad = np.flatnonzero(status[:, 0])
+    if bad.size:
+        walk = bad[status[bad, 0] <= _TB_WALK_MAX]
+        b = int((walk if walk.size else bad)[0])
+        raise _status_error(b, status[b], int(np.asarray(plen)[b]),
+                            int(np.asarray(tlen)[b]))
+    n = np.asarray(result.n_ops).reshape(-1).astype(np.int32)
+    width = int(n.max()) if n.size else 0
+    rows = np.asarray(result.ops)[:, :width]
+    flat = rows[np.arange(width, dtype=np.int32)[None, :] < n[:, None]]
+    ends = np.cumsum(n, dtype=np.int64)
+    return [flat[a:e] for a, e in zip((ends - n).tolist(), ends.tolist())]
+
+
 def traceback_result(result, pen, *, pattern, text, plen, tlen,
                      k_max: int, begin_state: str = "M",
                      end_state: str = "M"):
     """Dispatch on the trace encoding a ``WFAResult`` carries.
 
     Full offset history (``ref``) -> pointer-chase traceback; packed
-    provenance words (``ring``/``kernel``/``shardmap``) -> decode + replay.
-    ``pen`` may be a legacy ``Penalties`` triple or any ``PenaltyModel``;
-    linear models decode their single M plane.  ``begin_state`` /
-    ``end_state`` select BiWFA sub-alignment boundaries (affine only).
+    provenance words (``ring``/``shardmap``, ``kernel`` on the CPU) ->
+    decode + replay; ops decoded on the card (``kernel``) -> each pair's
+    ops cut out (:func:`traceback_decoded`).  ``pen`` may be a legacy
+    ``Penalties`` triple or any ``PenaltyModel``; linear models decode
+    their single M plane.  ``begin_state`` / ``end_state`` select BiWFA
+    sub-alignment boundaries (affine only).
     """
     if getattr(result, "m_hist", None) is not None:
         return traceback_batch(result, pen, plen, tlen, k_max,
@@ -591,14 +714,28 @@ def traceback_result(result, pen, *, pattern, text, plen, tlen,
         return traceback_packed_batch(result, pen, pattern, text, plen,
                                       tlen, begin_state=begin_state,
                                       end_state=end_state)
+    if getattr(result, "ops", None) is not None:
+        if begin_state != "M" or end_state != "M":
+            raise ValueError("decoded ops carry no boundary states")
+        return traceback_decoded(result, plen, tlen)
     raise ValueError("result carries no trace (score-only backend output); "
                      "run the backend's trace variant (output='cigar')")
 
 
+def trace_held_nbytes(result) -> int:
+    """The trace memory the wave held on its device: the planes the card
+    decoded into ``ops`` (``plane_nbytes``), else :func:`trace_nbytes`."""
+    if getattr(result, "ops", None) is not None:
+        return int(result.plane_nbytes)
+    return trace_nbytes(result)
+
+
 def trace_nbytes(result) -> int:
-    """Host-visible bytes of whichever trace encoding ``result`` carries."""
+    """Host-visible bytes of whichever trace encoding ``result`` carries:
+    what the wave's copy out brought back of it."""
     total = 0
-    for f in ("m_hist", "i_hist", "d_hist", "m_bt", "i_bt", "d_bt"):
+    for f in ("m_hist", "i_hist", "d_hist", "m_bt", "i_bt", "d_bt", "ops",
+              "n_ops", "status"):
         arr = getattr(result, f, None)
         if arr is not None:
             total += arr.size * arr.dtype.itemsize

@@ -225,10 +225,17 @@ class EngineStats:
     t_dev_copy_in: float = 0.0
     t_dev_kernel: float = 0.0
     t_dev_copy_out: float = 0.0
+    t_dev_traceback: float = 0.0   # the traceback kernel (events around it)
+    # CIGAR pairs whose packed trace was decoded on the card / on the host
+    n_tb_card: int = 0
+    n_tb_host: int = 0
     # BiWFA (trace_variant="bidir") telemetry
     n_meet_unmet: int = 0      # meet rows whose fronts never joined
     n_bidir_fallback: int = 0  # segments re-run via packed traceback
-    peak_trace_bytes: int = 0  # largest trace buffer gathered for one wave
+    # the largest trace one wave held on its device: the planes or history
+    # it gathered, or the planes the card decoded into ops (bytes_out
+    # counts what came back: there, the ops)
+    peak_trace_bytes: int = 0
 
     def merge(self, other: "EngineStats", *,
               count_pairs: bool = True) -> "EngineStats":
@@ -246,6 +253,7 @@ class EngineStats:
                   "n_traces", "rows_real", "rows_padded", "bytes_in",
                   "bytes_out", "t_scatter", "t_kernel", "t_gather",
                   "t_dev_copy_in", "t_dev_kernel", "t_dev_copy_out",
+                  "t_dev_traceback", "n_tb_card", "n_tb_host",
                   "n_meet_unmet", "n_bidir_fallback"):
             setattr(self, f, getattr(self, f) + getattr(other, f))
         self.peak_trace_bytes = max(self.peak_trace_bytes,

@@ -17,8 +17,12 @@ The counterpart of ``repro.core.session`` on PyTorch:
 * pairs that overflow the optimistic ``edit_frac`` bound are **recycled
   into a recovery queue** and re-run with exact worst-case bounds when a
   full recovery wave accumulates or at drain.
-* each submit carries its own **output mode**; CIGAR tracebacks run on
-  the host at retirement (``core.cigar`` on the gathered numpy words).
+* each submit carries its own **output mode**; on a card the ``kernel``
+  backend decodes a CIGAR wave's packed trace there, behind its trace
+  kernel, and only the ops come back; every other trace (CPU tensors,
+  other backends) is decoded on the host at retirement (``core.cigar`` on
+  the gathered numpy words).  ``n_tb_card`` / ``n_tb_host`` count the
+  pairs each way.
   ``trace_variant="bidir"`` hands a CIGAR ticket to the BiWFA driver
   (``repro_torch.biwfa``), which resubmits its sub-problems through the
   same session as internal tickets.
@@ -27,18 +31,20 @@ The sync ``engine.align()`` is one blocking pass through this class
 (``max_inflight_waves=1`` + per-phase timing: on a card, CUDA events
 around the host-to-device copy, the kernel and the device-to-host copy).
 In both modes each wave's events are read once it has retired, into the
-stats' ``t_dev_copy_in``, ``t_dev_kernel`` and ``t_dev_copy_out``: the
-copy in, the WFA kernels (events each launch records right around its
-kernel, :func:`repro_torch.device.kernel_marks`; a backend that records
-none gets the device interval from the copy in's end to the launch's end)
-and the copy out.
+stats' ``t_dev_copy_in``, ``t_dev_kernel``, ``t_dev_traceback`` and
+``t_dev_copy_out``: the copy in, the WFA kernels (events each launch
+records right around its kernel, :func:`repro_torch.device.kernel_marks`;
+a backend that records none gets the device interval from the copy in's
+end to the launch's end), the traceback kernel (its own events, kind
+``"traceback"``) and the copy out.
 
 Spans (``repro_torch.obs.trace``): ``wave.scatter`` holds ``scatter.pack``
 (gathering the rows, fitting width and rows), ``scatter.stage`` (the host
 copies into pinned memory, and the device buffers they go to) and
 ``scatter.launch`` (the copies enqueued, the launch, the copy out
-enqueued); ``wave.traceback`` holds
-``traceback.walk`` and ``traceback.replay`` (``core.cigar``).
+enqueued); ``wave.traceback`` (its args ``n_tb_card``, ``n_tb_host``: the
+wave's pairs decoded on the card and on the host) holds, for a host
+decode, ``traceback.walk`` and ``traceback.replay`` (``core.cigar``).
 
 Quickstart::
 
@@ -118,7 +124,9 @@ class Ticket:
         self.stats = EngineStats(n_pairs=n_pairs, n_workers=eng.n_workers)
         self._session = session
         self._scores = np.full((n_pairs,), -1, np.int32)
-        self._cigars: Optional[dict] = {} if output == "cigar" else None
+        # each row's CIGAR ops, None until its wave retires
+        self._cigars: Optional[list] = ([None] * n_pairs if output == "cigar"
+                                        else None)
         # breakpoints of "bidir_meet" rows: (state, a, b, k, h, safe) per
         # pair, -1 until the wave retires
         self._meet = (np.full((n_pairs, 6), -1, np.int32)
@@ -212,7 +220,8 @@ class _Wave:
     e0: object = None           # marks around the copy in (_mark)
     e1: object = None
     kmarks: Sequence = ()       # events around each kernel (kernel_marks)
-    pc: Optional[np.ndarray] = None   # padded codes, kept only for CIGAR
+    tbmarks: Sequence = ()      # ... around the traceback kernel
+    pc: Optional[np.ndarray] = None   # padded codes, for a host decode
     tc: Optional[np.ndarray] = None
     t_gather: Optional[float] = None  # sync mode: device-to-host seconds
 
@@ -486,7 +495,8 @@ class AlignmentSession:
                     e0 = self._mark()
                     dev = eng._enqueue(staged, dst)
                     e1 = self._mark()
-                    with kernel_marks() as kmarks:
+                    with kernel_marks() as kmarks, \
+                            kernel_marks("traceback") as tbmarks:
                         res = exe.call(*dev)
                     xfer = _Transfer(res, eng.device, self._mark)
             with self._fatal():
@@ -510,10 +520,12 @@ class AlignmentSession:
             n_tr = exe.n_traces - pre
             for st in (ticket.stats, self.stats):
                 st.n_traces += n_tr
-            keep = ticket.output == "cigar"
+            # the padded codes, for a host decode only
+            keep = (ticket.output == "cigar"
+                    and getattr(res, "ops", None) is None)
             self._inflight.append(_Wave(ticket, rows, xfer, plc, tlc, k_max,
                                         recovery, e0=e0, e1=e1,
-                                        kmarks=kmarks,
+                                        kmarks=kmarks, tbmarks=tbmarks,
                                         pc=pc if keep else None,
                                         tc=tc if keep else None,
                                         t_gather=t_gather))
@@ -563,10 +575,11 @@ class AlignmentSession:
             d_kern = (sum(a.elapsed_time(b) for a, b in wave.kmarks) / 1e3
                       if wave.kmarks
                       else self._elapsed(wave.e1, x.kernel_done))
+            d_tb = sum(a.elapsed_time(b) for a, b in wave.tbmarks) / 1e3
             d_out = self._elapsed(x.copy_start, x.copied)
             if _on:
                 sp.set(t_dev_copy_in=d_in, t_dev_kernel=d_kern,
-                       t_dev_copy_out=d_out)
+                       t_dev_traceback=d_tb, t_dev_copy_out=d_out)
             for st in (ticket.stats, self.stats):
                 if self._sync:   # sync mode billed the kernel at dispatch
                     st.t_gather += wave.t_gather
@@ -575,6 +588,7 @@ class AlignmentSession:
                     st.t_gather += t2 - t1
                 st.t_dev_copy_in += d_in
                 st.t_dev_kernel += d_kern
+                st.t_dev_traceback += d_tb
                 st.t_dev_copy_out += d_out
                 st.bytes_out += full.nbytes
             ticket._scores[wave.rows] = out
@@ -588,9 +602,22 @@ class AlignmentSession:
                 n_unmet = int((out < 0).sum())
                 for st in (ticket.stats, self.stats):
                     st.n_meet_unmet += n_unmet
+        eng = self.engine
+        optimistic = (eng.edit_frac is not None and eng._s_max is None
+                      and ticket._s_cap is None)
+        # rows past the optimistic bound; the adaptive engine re-runs them
+        overflow = (wave.rows[out < 0] if optimistic and not wave.recovery
+                    else wave.rows[:0])
         if ticket._cigars is not None:
+            # the pairs whose CIGAR this wave settles, by where their trace
+            # was decoded
+            n_tb = len(wave.rows) - (len(overflow) if eng.adaptive else 0)
+            card = getattr(res, "ops", None) is not None
+            tb = {"n_tb_card": n_tb if card else 0,
+                  "n_tb_host": 0 if card else n_tb}
             with obs_trace.span("wave.traceback", cat="wave",
-                                args=_args) as tsp:
+                                args=dict(_args, **tb) if _on else None
+                                ) as tsp:
                 for fid in ticket.flows:
                     tsp.flow_step(fid)
                 t3 = time.perf_counter()
@@ -601,37 +628,36 @@ class AlignmentSession:
                     end_state=ticket.states[1])
                 dt = time.perf_counter() - t3
                 nbytes = cigar_mod.trace_nbytes(res)
+                held = cigar_mod.trace_held_nbytes(res)
                 for st in (ticket.stats, self.stats):
                     st.t_gather += dt
                     st.bytes_out += nbytes
-                    st.peak_trace_bytes = max(st.peak_trace_bytes, nbytes)
-                for j, orig in enumerate(wave.rows):
-                    ticket._cigars[int(orig)] = ops[j]
+                    st.peak_trace_bytes = max(st.peak_trace_bytes, held)
+                    st.n_tb_card += tb["n_tb_card"]
+                    st.n_tb_host += tb["n_tb_host"]
+                # ops holds the wave's padded rows too, after the ticket's
+                for r, o in zip(wave.rows.tolist(), ops):
+                    ticket._cigars[r] = o
 
-        eng = self.engine
-        optimistic = (eng.edit_frac is not None and eng._s_max is None
-                      and ticket._s_cap is None)
         settled = len(wave.rows)     # rows this wave resolved for good
         if wave.recovery:
             n_rec = int((out >= 0).sum())
             for st in (ticket.stats, self.stats):
                 st.n_recovered += n_rec
-        elif optimistic:
-            overflow = wave.rows[out < 0]
-            if len(overflow):
-                for st in (ticket.stats, self.stats):
-                    st.n_overflow += len(overflow)
-                obs_metrics.counter("session_overflow_pairs_total",
-                                    "pairs past the optimistic bound, "
-                                    "queued for exact re-run"
-                                    ).inc(len(overflow))
-                if obs_trace.enabled():
-                    obs_trace.instant("session.overflow", cat="session",
-                                      args={"ticket": ticket.index,
-                                            "rows": len(overflow)})
-                if eng.adaptive:
-                    ticket._recovery_rows.append(overflow)
-                    settled -= len(overflow)
+        elif len(overflow):
+            for st in (ticket.stats, self.stats):
+                st.n_overflow += len(overflow)
+            obs_metrics.counter("session_overflow_pairs_total",
+                                "pairs past the optimistic bound, "
+                                "queued for exact re-run"
+                                ).inc(len(overflow))
+            if obs_trace.enabled():
+                obs_trace.instant("session.overflow", cat="session",
+                                  args={"ticket": ticket.index,
+                                        "rows": len(overflow)})
+            if eng.adaptive:
+                ticket._recovery_rows.append(overflow)
+                settled -= len(overflow)
         ticket._outstanding -= settled
         self._maybe_finish(ticket)
         if (ticket._recovery_rows and
@@ -665,7 +691,7 @@ class AlignmentSession:
     def _finalize(self, ticket: Ticket) -> None:
         cig = None
         if ticket._cigars is not None:
-            cig = [ticket._cigars[i] for i in range(ticket.n_pairs)]
+            cig = list(ticket._cigars)
         ticket._result = EngineResult(ticket._scores, cig, ticket._steps,
                                       ticket._s_hi, ticket._k_hi,
                                       ticket.stats,

@@ -100,6 +100,13 @@ class WFAResult(NamedTuple):
     m_bt: Optional[torch.Tensor] = None  # [n_trace_words, B, K] packed codes
     i_bt: Optional[torch.Tensor] = None  # None in score mode / linear models
     d_bt: Optional[torch.Tensor] = None
+    # the packed trace decoded on the card (the kernel backend's trace
+    # variant on CUDA tensors; core.cigar.decode_packed_plain builds the
+    # same on the host), in place of the planes
+    ops: Optional[torch.Tensor] = None     # [B, L] int8 CIGAR ops, -1 padded
+    n_ops: Optional[torch.Tensor] = None   # [B] int32 ops a pair
+    status: Optional[torch.Tensor] = None  # [B, 4] int32 error [code, s, k, h]
+    plane_nbytes: int = 0   # bytes of the planes the ops were decoded from
 
 
 def _check_states(model, begin_state: str, end_state: str) -> None:

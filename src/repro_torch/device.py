@@ -24,25 +24,29 @@ _local = threading.local()
 
 
 @contextlib.contextmanager
-def kernel_marks() -> Iterator[List[Tuple[object, object]]]:
+def kernel_marks(kind: str = "kernel"
+                 ) -> Iterator[List[Tuple[object, object]]]:
     """Collect, while the block runs on this thread, a ``(start, end)``
     pair of timing events for each kernel launch that takes
-    :func:`launch_marks`.  The launch records them on its stream right
-    before and right after the kernel, so once ``end`` has passed,
-    ``start.elapsed_time(end)`` is that kernel's device time."""
-    prev = getattr(_local, "marks", None)
-    _local.marks = marks = []
+    :func:`launch_marks` of the same ``kind`` (the WFA kernels
+    ``"kernel"``, the traceback kernel ``"traceback"``).  The launch records
+    them on its stream right before and right after the kernel, so once
+    ``end`` has passed, ``start.elapsed_time(end)`` is that kernel's device
+    time."""
+    prev = getattr(_local, kind, None)
+    marks: List[Tuple[object, object]] = []
+    setattr(_local, kind, marks)
     try:
         yield marks
     finally:
-        _local.marks = prev
+        setattr(_local, kind, prev)
 
 
-def launch_marks(stream) -> Tuple[object, object]:
+def launch_marks(stream, kind: str = "kernel") -> Tuple[object, object]:
     """-> the raw ``cudaEvent_t`` handles (start, end) for one launch on
-    ``stream``, or ``(None, None)`` where no :func:`kernel_marks` block
-    collects them."""
-    marks = getattr(_local, "marks", None)
+    ``stream``, or ``(None, None)`` where no :func:`kernel_marks` block of
+    ``kind`` collects them."""
+    marks = getattr(_local, kind, None)
     if marks is None:
         return None, None
     pair = (torch.cuda.Event(enable_timing=True),

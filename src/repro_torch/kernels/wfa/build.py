@@ -1,4 +1,5 @@
-"""Build and load the CUDA WFA kernels (``csrc/wfa.cu``, ``csrc/wfa_meet.cu``).
+"""Build and load the CUDA WFA kernels (``csrc/wfa.cu``, ``csrc/wfa_meet.cu``,
+``csrc/wfa_traceback.cu``).
 
 One shared library through the port's build helper
 (:mod:`repro_torch.kernels.build`: one ``nvcc`` per source, started
@@ -32,10 +33,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.wfa_meet_launch.restype = I
     lib.wfa_meet_scratch_ints.argtypes = [I] * 8
     lib.wfa_meet_scratch_ints.restype = ctypes.c_longlong
+    lib.wfa_traceback_launch.argtypes = [P] * 12 + [I] * 11 + [P] * 3
+    lib.wfa_traceback_launch.restype = I
 
 
 LIB = Library("wfa", os.path.dirname(os.path.abspath(__file__)),
-              ("wfa.cu", "wfa_meet.cu"), _declare)
+              ("wfa.cu", "wfa_meet.cu", "wfa_traceback.cu"), _declare)
 SOURCES = LIB.sources
 # path, wall seconds, compiler CPU seconds and ptxas log of the library
 BUILD_INFO = LIB.info

@@ -27,9 +27,13 @@ k, h, safe).  The plain version steps each block in lockstep over
 ``[Wd, B, k_pad]`` rings; the kernel runs one pair per CTA over the lanes
 of :func:`meet_band`, tests only in :func:`meet_test_steps`, and
 :func:`block_steps` turns its per-pair exit steps into the per-block
-``steps``.  :data:`LAUNCHES` counts kernel launches per variant.  Inside a
+``steps``.  :func:`wfa_traceback_cuda` decodes the trace kernel's planes
+into CIGAR ops on the card (``csrc/wfa_traceback.cu``); its plain version
+is ``core.cigar.decode_packed_plain``, the host's own walk and replay.
+:data:`LAUNCHES` counts kernel launches per variant.  Inside a
 :func:`repro_torch.device.kernel_marks` block each CUDA launch records a
-pair of timing events right around its kernel.
+pair of timing events right around its kernel (the traceback kernel under
+the kind ``"traceback"``).
 """
 from __future__ import annotations
 
@@ -45,10 +49,10 @@ from repro_torch.device import launch_marks
 from repro_torch.obs import trace as obs_trace
 
 # Kernel launches per variant ("score" / "trace" at full width,
-# "score_band" / "trace_band" on the compacting band, "meet"); the plain
-# versions do not count.
+# "score_band" / "trace_band" on the compacting band, "meet", "traceback");
+# the plain versions do not count.
 LAUNCHES = {"score": 0, "trace": 0, "score_band": 0, "trace_band": 0,
-            "meet": 0}
+            "meet": 0, "traceback": 0}
 
 
 def reset_launches() -> None:
@@ -295,6 +299,69 @@ def wfa_kernel(pattern, text, plen, tlen, *, pen, s_max: int, k_pad: int,
     return fn(pattern, text, plen, tlen, pen=pen, s_max=s_max, k_pad=k_pad,
               block_pairs=block_pairs, trace=trace, heur=heur,
               band_cap=band_cap)
+
+
+def wfa_traceback_cuda(score, bts, pattern, text, plen, tlen, *, pen,
+                       s_max: int):
+    """Decode the trace kernel's packed planes into CIGAR ops on the card,
+    on the current stream, right behind the trace kernel.
+
+    ``score`` ``[B, 1]`` and ``bts`` (the ``[NW, B, k_pad]`` planes, one for
+    linear models) are what :func:`wfa_cuda` returns with ``trace``; the
+    other arguments are its inputs.  -> ``(ops [B, L] int8, n_ops [B, 1]
+    int32, status [B, 4] int32)``, ``L = Lp + Lt``: each pair's ops (the
+    op codes of ``core.gotoh``) padded with -1, their count, and ``[code,
+    s, k, h]``, 0 or the host walk's error (``core.cigar.TB_ERRORS``);
+    exactly what ``core.cigar.decode_packed_plain`` builds on the host."""
+    from repro_torch.kernels.wfa import build
+
+    model = scoring.as_model(pen)
+    affine = model.kind == "affine"
+    B = pattern.shape[0]
+    # the trace kernel's inputs: int32 on one device, [B, *] rows, [B, 1]
+    # lengths (any block and k_pad)
+    _check(pattern, text, plen, tlen, 1, 2)
+    planes = tuple(bts)
+    if len(planes) != (3 if affine else 1):
+        raise ValueError(f"a {model.kind} trace has {3 if affine else 1} "
+                         f"planes, got {len(planes)}")
+    NW, _, K = planes[0].shape
+    dev = pattern.device
+    for name, t, shape in (("score", score, (B, 1)),
+                           *((f"plane {i}", t, (NW, B, K))
+                             for i, t in enumerate(planes))):
+        if t.device != dev or t.dtype != torch.int32 \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 {shape} "
+                             f"tensor on {dev}")
+    if dev.type != "cuda":
+        raise ValueError(f"wfa_traceback_cuda needs CUDA tensors, got {dev}")
+    lib = build.load()
+    pattern, text, plen, tlen = (t.contiguous()
+                                 for t in (pattern, text, plen, tlen))
+    Lp, Lt = pattern.shape[1], text.shape[1]
+    # a chain holds at most s / min(x, e) + 1 edits
+    cap = max(int(s_max), 0) // min(model.x, model.e) + 2
+    ops = torch.empty((B, Lp + Lt), dtype=torch.int8, device=dev)
+    n_ops = torch.empty((B, 1), dtype=torch.int32, device=dev)
+    status = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    # freed on return: the caching allocator orders any reuse after the
+    # kernel on this stream
+    chain = torch.empty(max(B * cap, 1), dtype=torch.uint8, device=dev)
+    m_bt, i_bt, d_bt = (planes + (None, None))[:3]
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        cur = torch.cuda.current_stream(dev)
+        rc = lib.wfa_traceback_launch(
+            *(ptr(t) for t in (score, m_bt, i_bt, d_bt, pattern, text, plen,
+                               tlen, ops, n_ops, status, chain)),
+            B, Lp, Lt, Lp + Lt, NW, K, cap, model.x, model.o, model.e,
+            int(affine), cur.cuda_stream, *launch_marks(cur, "traceback"))
+    if rc != 0:
+        raise RuntimeError(f"WFA traceback kernel launch failed: "
+                           f"{lib.wfa_error_string(rc).decode()} ({rc})")
+    LAUNCHES["traceback"] += 1
+    return ops, n_ops, status
 
 
 def _check_meet(pattern, text, pat_rev, txt_rev, plen, tlen, starget,

@@ -1,8 +1,10 @@
 """Wrappers around the WFA kernels: padding, blocking, unpadding.
 
 ``wfa_align`` / ``wfa_align_trace`` drive the WFA kernel (scores, packed
-trace); ``wfa_bidir_meet_kernel`` drives the BiWFA meet kernel and also
-hands it the per-row reversed sequences, reversed on the device.
+trace); ``wfa_align_cigar`` runs the trace kernel and, behind it on the
+card, the traceback kernel that decodes its planes into CIGAR ops;
+``wfa_bidir_meet_kernel`` drives the BiWFA meet kernel and also hands it the
+per-row reversed sequences, reversed on the device.
 
 The padding contract of the JAX package's ``kernels/wfa/ops.py``: the pair
 axis pads to a multiple of ``block_pairs`` with padded pairs of
@@ -35,7 +37,8 @@ import torch
 from repro_torch.core import scoring
 from repro_torch.core.wavefront import BidirMeetResult, _reverse_rows
 from repro_torch.device import resolve_device
-from repro_torch.kernels.wfa.kernel import wfa_kernel, wfa_meet_kernel
+from repro_torch.kernels.wfa.kernel import (wfa_kernel, wfa_meet_kernel,
+                                           wfa_traceback_cuda)
 
 LANE = 128
 DEFAULT_BLOCK_PAIRS = 8
@@ -74,15 +77,21 @@ def _prep(pattern, text, plen, tlen, block_pairs, device=None):
 
 
 def _run(pattern, text, plen, tlen, *, pen, s_max, k_max, block_pairs, heur,
-         band_cap, trace, device):
+         band_cap, trace, device, decode=False):
     bp = resolve_block_pairs(block_pairs)
     pattern, text, plen2, tlen2, B = _prep(pattern, text, plen, tlen, bp,
                                            device)
     k_pad = _round_up(2 * int(k_max) + 1, LANE)
-    return B, wfa_kernel(pattern, text, plen2, tlen2, pen=pen,
-                         s_max=int(s_max), k_pad=k_pad, block_pairs=bp,
-                         trace=trace, heur=scoring.as_heuristic(heur),
-                         band_cap=_band_lanes(band_cap, k_pad))
+    out = wfa_kernel(pattern, text, plen2, tlen2, pen=pen, s_max=int(s_max),
+                     k_pad=k_pad, block_pairs=bp, trace=trace,
+                     heur=scoring.as_heuristic(heur),
+                     band_cap=_band_lanes(band_cap, k_pad))
+    if decode:
+        held = sum(t.nbytes for t in out[2:])
+        out = (out[0],) + wfa_traceback_cuda(out[0], out[2:], pattern, text,
+                                             plen2, tlen2, pen=pen,
+                                             s_max=int(s_max)) + (held,)
+    return B, out
 
 
 def wfa_align(pattern, text, plen, tlen, *, pen, s_max: int, k_max: int,
@@ -112,6 +121,22 @@ def wfa_align_trace(pattern, text, plen, tlen, *, pen, s_max: int,
     score, _, *bts = out
     bts = [bt[:, :B, :] for bt in bts] + [None, None]
     return (score[:B, 0], *bts[:3])
+
+
+def wfa_align_cigar(pattern, text, plen, tlen, *, pen, s_max: int,
+                    k_max: int, block_pairs: Optional[int] = None,
+                    heur=None, band_cap: Optional[int] = None, device=None):
+    """Batched WFA scores *plus* each pair's CIGAR ops, decoded on the card
+    -> ``(score [B], ops [B, L] int8, n_ops [B], status [B, 4],
+    plane_nbytes)`` on ``device``, which must be a card: the trace kernel's
+    planes go straight to the traceback kernel (:func:`~repro_torch.kernels.
+    wfa.kernel.wfa_traceback_cuda`, which says what the outputs hold) and
+    never leave the card; ``plane_nbytes`` is what they held there."""
+    B, (score, ops, n_ops, status, held) = _run(
+        pattern, text, plen, tlen, pen=pen, s_max=s_max, k_max=k_max,
+        block_pairs=block_pairs, heur=heur, band_cap=band_cap, trace=True,
+        device=device, decode=True)
+    return score[:B, 0], ops[:B], n_ops[:B, 0], status[:B], held
 
 
 def wfa_bidir_meet_kernel(pattern, text, plen, tlen, starget, *, pen,

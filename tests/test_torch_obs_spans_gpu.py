@@ -10,7 +10,11 @@ event interval is held against the device work the profiler shows in it:
 ``t_dev_copy_in`` (events around the copies in, recorded after the host
 has staged them) against the ``Memcpy HtoD`` time, ``t_dev_kernel``
 (events each launch records right around its kernel) against the WFA
-kernels' time, ``t_dev_copy_out`` against the ``Memcpy DtoH`` time.
+kernels' time, ``t_dev_traceback`` (the traceback kernel's own events) in
+the CIGAR cases against that kernel's time, ``t_dev_copy_out`` against the
+``Memcpy DtoH`` time.  A CIGAR wave's trace is decoded on the card: every
+pair counts in ``n_tb_card``, and the profile holds no ``traceback.walk``
+or ``traceback.replay`` span.
 
 Where the card's work outlasts the host's enqueues (10 kb waves: copies of
 1.5 ms, a kernel of 7 ms), copy in and kernel agree with the profiler
@@ -70,16 +74,22 @@ def cuda_device():
 
 def _device_seconds(path):
     """-> seconds of the profiled device work: ``htod`` and ``dtoh`` (the
-    copies) and ``kernel`` (the WFA kernels)."""
+    copies), ``kernel`` (the WFA kernels) and ``traceback`` (the traceback
+    kernel), and the names of the program's spans in the profile."""
     with open(os.path.join(path, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     dev = [(float(e["dur"]), e["name"]) for e in events
            if e.get("ph") == "X"
            and str(e.get("cat", "")).lower() in DEVICE_CATS]
+    tb = lambda n: "wfa_traceback_kernel" in n
     return {"htod": sum(d for d, n in dev if "HtoD" in n) / 1e6,
             "dtoh": sum(d for d, n in dev if "DtoH" in n) / 1e6,
             "kernel": sum(d for d, n in dev
-                          if re.search(r"wfa_\w*_kernel<", n)) / 1e6}
+                          if re.search(r"wfa_\w*_kernel<", n)
+                          and not tb(n)) / 1e6,
+            "traceback": sum(d for d, n in dev if tb(n)) / 1e6,
+            "spans": {e["name"] for e in events
+                      if e.get("cat") == "user_annotation"}}
 
 
 @pytest.mark.gpu
@@ -123,8 +133,18 @@ def test_wave_events_agree_with_the_profiler(cuda_device, tmp_path, case):
           f"kernel, copy out: events "
           f"{ms(st.t_dev_copy_in, st.t_dev_kernel, st.t_dev_copy_out)}; "
           f"profiler {ms(prof['htod'], prof['kernel'], prof['dtoh'])}")
-    pairs = ((st.t_dev_copy_in, prof["htod"], COPIES_IN),
-             (st.t_dev_kernel, prof["kernel"], 1))
+    pairs = [(st.t_dev_copy_in, prof["htod"], COPIES_IN),
+             (st.t_dev_kernel, prof["kernel"], 1)]
+    if output == "cigar":
+        print(f"[{case}] traceback kernel ms: events "
+              f"{ms(st.t_dev_traceback)}; profiler {ms(prof['traceback'])}")
+        assert (st.n_tb_card, st.n_tb_host) == (n * chunks, 0)
+        assert "wave.traceback" in prof["spans"]
+        assert not prof["spans"] & {"traceback.walk", "traceback.replay"}
+        assert prof["traceback"] > 0
+        pairs.append((st.t_dev_traceback, prof["traceback"], 1))
+    else:
+        assert st.t_dev_traceback == prof["traceback"] == 0
     for events, work, ops in pairs:
         if host_bound:
             assert work <= events <= work + ops * chunks * ENQUEUE_S
